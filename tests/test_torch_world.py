@@ -1,0 +1,189 @@
+"""The port's main path end to end, its isolation from JAX, and its
+refusals.
+
+* A planned-balancer world of the port beside the JAX package's world on
+  the same master/worker app: each unit consumed exactly once, the same
+  answers, and the port's solves on the device path.
+* A port world in a fresh interpreter imports neither ``jax`` nor any
+  ``adlb_tpu`` module, and no file of the port imports them.
+* ``device="cuda"`` without a card raises; unported features raise
+  ``NotImplementedError``; a failing device solve aborts the world instead
+  of falling back to numpy.
+"""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import tests.conftest  # noqa: F401  (JAX on the CPU platform)
+
+import adlb_tpu
+import adlb_tpu_torch
+from adlb_tpu.runtime.world import Config as RefConfig
+from adlb_tpu_torch.balancer import greedy_sweep
+from adlb_tpu_torch.balancer import solve as tsolve
+from adlb_tpu_torch.balancer.engine import PlanEngine
+from adlb_tpu_torch.runtime.world import Config
+from adlb_tpu_torch.unported import require
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+TYPES = (1, 2, 3, 4)
+ANSWER = 9
+NUNITS = 240
+
+
+def _value(i):
+    return (i * 7919) % 1000003
+
+
+def _make_app(success):
+    """Rank 0 puts NUNITS typed, prioritised units and sums the answers;
+    workers reserve and get until the world ends, answering each unit."""
+
+    def app(ctx):
+        if ctx.rank == 0:
+            for i in range(NUNITS):
+                ctx.put(i.to_bytes(4, "little"), TYPES[i % 4],
+                        work_prio=(i * 31) % 97)
+            total = 0
+            for _ in range(NUNITS):
+                rc, r = ctx.reserve([ANSWER])
+                assert rc == success
+                rc, buf = ctx.get_reserved(r.handle)
+                total += int.from_bytes(buf, "little")
+            ctx.set_problem_done()
+            return total
+        seen = []
+        while True:
+            rc, r = ctx.reserve(list(TYPES))
+            if rc != success:
+                return seen
+            rc, buf = ctx.get_reserved(r.handle)
+            if rc != success:
+                return seen
+            i = int.from_bytes(buf, "little")
+            seen.append(i)
+            ctx.put(_value(i).to_bytes(8, "little"), ANSWER, target_rank=0)
+
+    return app
+
+
+def _world(pkg, cfg, napps=8, nservers=2):
+    res = pkg.run_world(num_app_ranks=napps, nservers=nservers,
+                        types=TYPES + (ANSWER,),
+                        app_fn=_make_app(pkg.ADLB_SUCCESS), cfg=cfg,
+                        timeout=90)
+    assert not res.aborted
+    consumed = sorted(i for r in range(1, napps) for i in res.app_results[r])
+    assert consumed == list(range(NUNITS))  # each unit exactly once
+    assert res.app_results[0] == sum(_value(i) for i in range(NUNITS))
+    return res
+
+
+def _planned(cls, **kw):
+    # puts stay home, so the other server's workers are fed by the planner
+    return cls(balancer="tpu", solver_host_threshold=0, put_routing="home",
+               balancer_max_tasks=32, balancer_max_requesters=8, **kw)
+
+
+def test_port_world_matches_reference_world():
+    ref = _world(adlb_tpu, _planned(RefConfig))
+    before = dict(tsolve.solve_counts)
+    launches = greedy_sweep.launches
+    port = _world(adlb_tpu_torch, _planned(Config, device="cpu"))
+    assert port.app_results[0] == ref.app_results[0]
+    assert tsolve.solve_counts["device"] > before["device"]
+    assert tsolve.solve_counts["host"] == before["host"]
+    assert greedy_sweep.launches == launches  # CPU tensors: plain version
+
+
+def test_port_world_imports_no_jax():
+    # rank 0 puts a few units; every rank consumes until exhaustion
+    code = (
+        "import sys\n"
+        "from adlb_tpu_torch import run_world, ADLB_SUCCESS\n"
+        "from adlb_tpu_torch.runtime.world import Config\n"
+        "def app(ctx):\n"
+        "    if ctx.rank == 0:\n"
+        "        for i in range(20): ctx.put(b'x', 1, work_prio=i)\n"
+        "    while True:\n"
+        "        rc, r = ctx.reserve([1])\n"
+        "        if rc != ADLB_SUCCESS: return 0\n"
+        "        ctx.get_reserved(r.handle)\n"
+        "from adlb_tpu_torch.balancer.solve import solve_counts\n"
+        "cfg = Config(balancer='tpu', device='cpu', solver_host_threshold=0,\n"
+        "             put_routing='home')\n"
+        "run_world(num_app_ranks=4, nservers=2, types=[1], app_fn=app,\n"
+        "          cfg=cfg, timeout=60)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'adlb_tpu' or m.startswith('adlb_tpu.')]\n"
+        "print('LEAKED', bad, 'DEVICE_SOLVES', solve_counts['device'])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED [] DEVICE_SOLVES" in out.stdout, out.stdout
+    assert int(out.stdout.split()[-1]) > 0, out.stdout
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|adlb_tpu)(\.|\s|$)", re.M)
+    files = sorted((ROOT / "adlb_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 30
+    for f in files:
+        hits = pat.findall(f.read_text())
+        assert not hits, (f, hits)
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        Config(balancer="tpu")  # device="cuda" is the default
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tsolve.AssignmentSolver(types=TYPES, max_tasks=4, max_requesters=2)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        PlanEngine(types=TYPES, max_tasks=4, max_requesters=2)
+
+
+@pytest.mark.parametrize("kw", [
+    {"balancer_mesh": "auto"},
+    {"native_queues": "on"},
+    {"server_impl": "native"},
+    {"spill_dir": "spill"},
+    {"wal_dir": "wal"},
+    {"ops_port": 0},
+    {"control": True},
+])
+def test_unported_features_raise(kw):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        Config(device="cpu", **kw)
+
+
+def test_unported_modules_and_mesh_raise():
+    with pytest.raises(NotImplementedError, match="sharded planner"):
+        PlanEngine(types=TYPES, max_tasks=4, max_requesters=2, use_mesh=True,
+                   device="cpu")
+    with pytest.raises(NotImplementedError, match="runtime.spill"):
+        require("runtime.spill")
+    assert require("runtime.queues").WorkQueue is not None
+    with pytest.raises(ValueError, match="solver_backend"):
+        Config(device="cpu", solver_backend="pallas")
+
+
+def test_device_solve_failure_aborts_the_world(monkeypatch):
+    def broken(*args):
+        raise RuntimeError("injected device failure")
+
+    monkeypatch.setattr(greedy_sweep, "greedy_assign_torch", broken)
+    host = tsolve.solve_counts["host"]
+    with pytest.raises(RuntimeError, match="balancer failed"):
+        adlb_tpu_torch.run_world(
+            num_app_ranks=8, nservers=2, types=TYPES + (ANSWER,),
+            app_fn=_make_app(adlb_tpu_torch.ADLB_SUCCESS),
+            cfg=_planned(Config, device="cpu"), timeout=60)
+    assert tsolve.solve_counts["host"] == host  # no numpy fallback
