@@ -1,5 +1,5 @@
-"""The greedy assignment sweep: a hand-written CUDA kernel and its plain
-PyTorch version.
+"""The greedy assignment solve: a hand-written CUDA kernel and its plain
+PyTorch versions.
 
 :func:`greedy_assign` is the device solve of the planned balancer
 (:class:`adlb_tpu_torch.balancer.solve.AssignmentSolver`). Tasks are taken in
@@ -8,16 +8,24 @@ lowest-index open requester that is valid and whose type mask accepts it, and
 that requester closes. It returns ``assign[NR]`` int32: the task index each
 requester got, or -1.
 
-* On CUDA tensors it runs ``csrc/greedy_sweep.cu`` (the Hopper port of the
-  Pallas sweep in the JAX package's ``balancer/pallas_solve.py``), built with
-  ``nvcc`` into ``adlb_tpu_torch/_build/`` at first use and loaded with
-  ``ctypes``. A few torch ops on the device prepare its inputs: the stable
-  priority order and one requester bitmask per type.
+* On CUDA tensors it is one ``torch.sort`` and one launch of
+  ``csrc/greedy_sweep.cu`` (the Hopper redesign of the Pallas sweep in the
+  JAX package's ``balancer/pallas_solve.py``), built with ``nvcc`` into
+  ``adlb_tpu_torch/_build/`` at first use and loaded with ``ctypes``. The
+  kernel groups the requesters into classes (same valid, non-empty type
+  mask) and takes one of three exact routes, named in :data:`ROUTES`:
+  ``"partition"`` when every type lies in at most one class (a prefix
+  count), ``"classes"`` when T <= 10 and at most 32 classes exist (a chain
+  with one warp lane per class), and ``"sweep"`` otherwise (per-type
+  requester bitmasks). :func:`requester_classes` states the rule.
 * On CPU tensors it runs :func:`greedy_assign_torch`, the plain version,
   which repeats the JAX package's ``_greedy_assign`` scan step by step.
+  :func:`greedy_assign_partition_torch` and :func:`greedy_assign_classes_torch`
+  are plain versions of the first two routes; only tests and
+  ``chip_smoke.py`` call them.
 
-There is no fallback between the two: a CUDA tensor launches the kernel or
-raises.
+There is no fallback between the kernel and a plain version: a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import List, NamedTuple
 
 import torch
 
@@ -38,13 +47,18 @@ _NEG = -(2**31) + 1  # padding priority, as balancer/solve.py
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "greedy_sweep.cu"
 BUILD_DIR = _PKG / "_build"
-# the block's shared-memory ceiling on Hopper (227 KB)
-_MAX_SMEM = 232448
+
+#: the kernel's routes; the kernel writes route code i + 1 for ROUTES[i]
+ROUTES = ("partition", "classes", "sweep")
 
 #: kernel launches so far; chip_smoke.py zeroes it around the main path
 launches = 0
+#: launches per route, counted where the route word is read back on the
+#: host (the solver's device solve)
+route_launches = dict.fromkeys(ROUTES, 0)
 
 _lib = None
+_lib_path = None
 _lib_lock = threading.Lock()
 #: the compiler's output (-Xptxas -v) of the build this process loaded
 build_log = ""
@@ -59,10 +73,12 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the kernel (once per source revision) and load it; returns
-    the shared library's path. Raises with the compiler's output when the
-    build fails."""
-    global _lib, build_log
+    """Compile the kernel (once per source revision), load it and set its
+    shared-memory limit; returns the shared library's path. Raises with the
+    compiler's output when the build fails."""
+    global _lib, _lib_path, build_log
+    if _lib is not None:
+        return _lib_path
     with _lib_lock:
         src = SOURCE.read_bytes()
         out = BUILD_DIR / f"greedy_sweep-{hashlib.sha1(src).hexdigest()[:12]}.so"
@@ -83,16 +99,45 @@ def build() -> Path:
                     f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
                     f"{build_log}")
             os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-        lib = ctypes.CDLL(str(out))
-        lib.adlb_greedy_sweep.argtypes = [ctypes.c_void_p] * 4 + [
+        # PyDLL keeps the interpreter lock across the microsecond-long
+        # launch call instead of giving it up and winning it back
+        lib = ctypes.PyDLL(str(out))
+        lib.adlb_greedy_sweep_init.argtypes = []
+        lib.adlb_greedy_sweep_init.restype = ctypes.c_int
+        lib.adlb_greedy_sweep.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.adlb_greedy_sweep.restype = ctypes.c_int
         lib.adlb_greedy_sweep_smem.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.adlb_greedy_sweep_smem.restype = ctypes.c_longlong
+        lib.adlb_greedy_sweep_max_smem.argtypes = []
+        lib.adlb_greedy_sweep_max_smem.restype = ctypes.c_longlong
+        lib.adlb_copy_async.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_longlong, ctypes.c_void_p]
+        lib.adlb_copy_async.restype = ctypes.c_int
         lib.adlb_cuda_error_string.argtypes = [ctypes.c_int]
         lib.adlb_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        err = lib.adlb_greedy_sweep_init()
+        if err != 0:
+            raise RuntimeError(
+                f"greedy sweep init failed: CUDA error {err} "
+                f"({lib.adlb_cuda_error_string(err).decode()})")
+        _lib, _lib_path = lib, out
         return out
+
+
+def check_shape(nr: int, ntypes: int) -> None:
+    """Raise ValueError when NR requesters x T types need more shared
+    memory than a block has (builds the kernel first). On an H100 that is
+    past about 46,000 requesters, or past about 22,700 at T = 64: the class
+    member lists (one word per requester) and the per-type bitmasks (T + 1
+    bits per requester) live in shared memory."""
+    build()
+    need = _lib.adlb_greedy_sweep_smem(nr, ntypes)
+    have = _lib.adlb_greedy_sweep_max_smem()
+    if need > have:
+        raise ValueError(
+            f"greedy sweep needs {need} bytes of shared memory for {nr} "
+            f"requesters x {ntypes} types; a block may use {have}")
 
 
 def _check(task_prio, task_type, req_mask, req_valid) -> None:
@@ -114,82 +159,199 @@ def _check(task_prio, task_type, req_mask, req_valid) -> None:
         raise ValueError("req_mask and req_valid differ in length")
 
 
-def type_bitmasks(req_mask: torch.Tensor, req_valid: torch.Tensor):
-    """[T, ceil(NR/32)] int32 words: bit r of row t is set when requester r
-    is valid and accepts type t (the kernel reads them as uint32)."""
-    nr, ntypes = req_mask.shape
-    nwords = (nr + 31) // 32
-    bits = torch.zeros((ntypes, nwords * 32), dtype=torch.int64,
-                       device=req_mask.device)
-    bits[:, :nr] = (req_mask & req_valid[:, None]).T
-    weights = torch.ones(32, dtype=torch.int64, device=bits.device) << \
-        torch.arange(32, device=bits.device)
-    words = (bits.view(ntypes, nwords, 32) * weights).sum(-1)
-    # map [0, 2^32) onto the int32 bit patterns explicitly
-    words = torch.where(words >= 2**31, words - 2**32, words)
-    return words.to(torch.int32).contiguous()
+def sort_tasks(task_prio, out=None):
+    """The stable descending-priority order (FIFO on ties): (sorted
+    priorities, original indices int64). Padding (``_NEG``) sorts last. The
+    JAX package computes it in XLA outside its Pallas call."""
+    return torch.sort(task_prio, descending=True, stable=True, out=out)
 
 
-def prepare_sweep(task_prio, task_type, req_mask, req_valid) -> tuple:
-    """The torch pre-pass on the device (the JAX package runs it as XLA
-    around its Pallas call): the stable descending-priority order, each
-    ordered task's type (-1 when not live) and the per-type requester
-    bitmasks. Returns the kernel's inputs (s_type, order, typebits)."""
-    ntypes = req_mask.shape[1]
-    order = torch.sort(-task_prio, stable=True).indices
-    s_prio = task_prio[order]
-    s_type = task_type[order]
-    live = (s_prio > _NEG) & (s_type >= 0) & (s_type < ntypes)
-    s_type = torch.where(live, s_type, -1).contiguous()
-    return (s_type, order.to(torch.int32).contiguous(),
-            type_bitmasks(req_mask, req_valid))
-
-
-def launch_sweep(s_type, order, typebits, nr: int):
-    """Launch the sweep kernel on the current stream; returns assign[nr]."""
+def launch_raw(s_prio: int, order: int, task_type: int, req_mask: int,
+               req_valid: int, out: int, nt: int, nr: int, ntypes: int,
+               stream: int) -> None:
+    """One launch from device pointers (ints) on the CUDA stream whose
+    handle is ``stream``; the caller has checked the buffers (see
+    :func:`launch`) and the shape (:func:`check_shape`)."""
     global launches
-    for name, x in (("s_type", s_type), ("order", order),
-                    ("typebits", typebits)):
-        if (x.device.type != "cuda" or x.dtype != torch.int32
-                or not x.is_contiguous() or x.device != s_type.device):
-            raise ValueError(f"{name} must be a contiguous int32 tensor on "
-                             f"the CUDA device of s_type")
-    if order.shape != s_type.shape or s_type.dim() != 1 \
-            or typebits.dim() != 2 or typebits.shape[1] != (nr + 31) // 32:
-        raise ValueError("launch_sweep: inconsistent input shapes")
-    build()
-    ntypes = typebits.shape[0]
-    smem = _lib.adlb_greedy_sweep_smem(nr, ntypes)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"greedy sweep needs {smem} bytes of shared memory for "
-            f"{nr} requesters x {ntypes} types; the block limit is "
-            f"{_MAX_SMEM}")
-    dev = s_type.device
-    assign = torch.empty((nr,), dtype=torch.int32, device=dev)
-    err = _lib.adlb_greedy_sweep(
-        s_type.data_ptr(), order.data_ptr(), typebits.data_ptr(),
-        assign.data_ptr(), s_type.shape[0], nr, ntypes,
-        torch.cuda.current_stream(dev).cuda_stream)
+    err = _lib.adlb_greedy_sweep(s_prio, order, task_type, req_mask,
+                                 req_valid, out, nt, nr, ntypes, stream)
     if err != 0:
         raise RuntimeError(
             f"greedy sweep launch failed: CUDA error {err} "
             f"({_lib.adlb_cuda_error_string(err).decode()})")
     launches += 1
-    return assign
+
+
+def copy_raw(dst: int, src: int, nbytes: int, stream: int) -> None:
+    """One asynchronous copy of ``nbytes`` between pinned host memory and
+    the card (pointers as ints) on the CUDA stream whose handle is
+    ``stream``. Unlike a torch copy it keeps the interpreter lock."""
+    err = _lib.adlb_copy_async(dst, src, nbytes, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"copy of {nbytes} bytes failed: CUDA error {err} "
+            f"({_lib.adlb_cuda_error_string(err).decode()})")
+
+
+def launch(s_prio, order, task_type, req_mask, req_valid, out) -> None:
+    """Launch the kernel on the current stream: (s_prio, order) from
+    :func:`sort_tasks`, the task types, masks and validity as given to
+    :func:`greedy_assign`; it writes ``out[:NR]`` (assign) and ``out[NR]``
+    (the route code)."""
+    dev = s_prio.device
+    nr, ntypes = req_mask.shape
+    for name, x, dtype, shape in (
+            ("s_prio", s_prio, torch.int32, task_type.shape),
+            ("order", order, torch.int64, task_type.shape),
+            ("task_type", task_type, torch.int32, s_prio.shape),
+            ("req_mask", req_mask, torch.bool, (nr, ntypes)),
+            ("req_valid", req_valid, torch.bool, (nr,)),
+            ("out", out, torch.int32, (nr + 1,))):
+        if (x.device.type != "cuda" or x.device != dev or x.dtype != dtype
+                or not x.is_contiguous() or tuple(x.shape) != tuple(shape)):
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
+                             f"shape {tuple(shape)} on the CUDA device of "
+                             f"s_prio")
+    check_shape(nr, ntypes)
+    launch_raw(s_prio.data_ptr(), order.data_ptr(), task_type.data_ptr(),
+               req_mask.data_ptr(), req_valid.data_ptr(), out.data_ptr(),
+               s_prio.shape[0], nr, ntypes,
+               torch.cuda.current_stream(dev).cuda_stream)
+
+
+def solve_cuda(task_prio, task_type, req_mask, req_valid):
+    """The kernel route (CUDA tensors only): one sort and one launch.
+    Returns (assign [NR] int32, route code [] int32), both on the card;
+    ``ROUTES[code - 1]`` names the route."""
+    _check(task_prio, task_type, req_mask, req_valid)
+    if task_prio.device.type != "cuda":
+        raise ValueError("solve_cuda takes CUDA tensors")
+    nr = req_mask.shape[0]
+    with torch.cuda.device(task_prio.device):
+        out = torch.empty((nr + 1,), dtype=torch.int32,
+                          device=task_prio.device)
+        s_prio, order = sort_tasks(task_prio)
+        launch(s_prio, order, task_type, req_mask, req_valid, out)
+    return out[:nr], out[nr]
 
 
 def greedy_assign_cuda(task_prio, task_type, req_mask, req_valid):
     """The kernel route (CUDA tensors only). See :func:`greedy_assign`."""
-    _check(task_prio, task_type, req_mask, req_valid)
     if task_prio.device.type != "cuda":
         raise ValueError("greedy_assign_cuda takes CUDA tensors")
-    nr = req_mask.shape[0]
-    if nr == 0:
-        return torch.empty((0,), dtype=torch.int32, device=task_prio.device)
-    with torch.cuda.device(task_prio.device):
-        return launch_sweep(
-            *prepare_sweep(task_prio, task_type, req_mask, req_valid), nr)
+    return solve_cuda(task_prio, task_type, req_mask, req_valid)[0]
+
+
+def count_route(code: int) -> str:
+    """Count one launch under the route whose code the kernel wrote."""
+    name = ROUTES[code - 1]
+    route_launches[name] += 1
+    return name
+
+
+class RequesterClasses(NamedTuple):
+    """Requesters grouped by their valid, non-empty type mask."""
+
+    #: [NR] int64: each requester's class, -1 for none (invalid or empty)
+    class_id: torch.Tensor
+    #: [C, T] bool: the types each class accepts
+    types: torch.Tensor
+    #: C int64 tensors: each class's requesters in index order
+    members: List[torch.Tensor]
+    #: the kernel's route for these requesters, one of ROUTES
+    route: str
+
+
+def requester_classes(req_mask, req_valid) -> RequesterClasses:
+    """The plain version of the kernel's class building and route rule:
+    ``"partition"`` when T <= 64 and every type lies in at most one class,
+    else ``"classes"`` when T <= 10 and at most 32 classes exist, else
+    ``"sweep"``."""
+    nr, ntypes = req_mask.shape
+    rows = req_mask & req_valid[:, None]
+    held = rows.any(1)
+    class_id = torch.full((nr,), -1, dtype=torch.int64, device=rows.device)
+    types, inverse = torch.unique(rows[held].to(torch.uint8), dim=0,
+                                  return_inverse=True)
+    types = types.bool()
+    class_id[held] = inverse
+    nclasses = types.shape[0]
+    by_class = torch.sort(class_id, stable=True).indices[nr - int(held.sum()):]
+    counts = torch.bincount(inverse, minlength=nclasses)
+    members = list(torch.split(by_class, counts.tolist()))
+    if ntypes <= 64 and bool((types.sum(0) <= 1).all()):
+        route = "partition"
+    elif ntypes <= 10 and nclasses <= 32:
+        route = "classes"
+    else:
+        route = "sweep"
+    return RequesterClasses(class_id, types, members, route)
+
+
+def _live_order(task_prio, task_type, ntypes):
+    """(order int64, ordered types, live mask) of the stable
+    descending-priority order."""
+    s_prio, order = sort_tasks(task_prio)
+    s_type = task_type[order]
+    live = (s_prio > _NEG) & (s_type >= 0) & (s_type < ntypes)
+    return order, s_type, live
+
+
+def greedy_assign_partition_torch(task_prio, task_type, req_mask, req_valid):
+    """The plain version of route ``"partition"``: the n-th live task whose
+    type lies in class c takes c's n-th member. Raises ValueError when the
+    classes do not partition the types."""
+    _check(task_prio, task_type, req_mask, req_valid)
+    nr, ntypes = req_mask.shape
+    classes = requester_classes(req_mask, req_valid)
+    if not bool((classes.types.sum(0) <= 1).all()):
+        raise ValueError("the requester classes do not partition the types")
+    assign = torch.full((nr,), -1, dtype=torch.int32, device=req_mask.device)
+    if not classes.members:
+        return assign
+    order, s_type, live = _live_order(task_prio, task_type, ntypes)
+    held = torch.nonzero(classes.types)  # (class, type) pairs
+    type_class = torch.full((ntypes,), -1, dtype=torch.int64,
+                            device=req_mask.device)
+    type_class[held[:, 1]] = held[:, 0]
+    task_class = torch.where(live, type_class[s_type.clamp(0, ntypes - 1)],
+                             -1)
+    for c, members in enumerate(classes.members):
+        k = torch.nonzero(task_class == c).flatten()[:members.numel()]
+        assign[members[:k.numel()]] = order[k].to(torch.int32)
+    return assign
+
+
+def greedy_assign_classes_torch(task_prio, task_type, req_mask, req_valid):
+    """The plain version of route ``"classes"``: a live task takes the
+    lowest next member over the classes that hold its type, and that class
+    advances. Exact for any requesters (the kernel takes it only under the
+    rule of :func:`requester_classes`)."""
+    _check(task_prio, task_type, req_mask, req_valid)
+    nr, ntypes = req_mask.shape
+    classes = requester_classes(req_mask, req_valid)
+    members = [m.tolist() for m in classes.members]
+    holders = [torch.nonzero(col).flatten().tolist()
+               for col in classes.types.T]
+    nxt = [0] * len(members)
+    n_open = sum(len(m) for m in members)
+    out = [-1] * nr
+    order, s_type, live = _live_order(task_prio, task_type, ntypes)
+    orders, types = order.tolist(), s_type.tolist()
+    for k in torch.nonzero(live).flatten().tolist():
+        if n_open == 0:
+            break
+        best = None
+        for c in holders[types[k]]:
+            if nxt[c] < len(members[c]) and (
+                    best is None or members[c][nxt[c]] < members[best][nxt[best]]):
+                best = c
+        if best is None:
+            continue
+        out[members[best][nxt[best]]] = orders[k]
+        nxt[best] += 1
+        n_open -= 1
+    return torch.tensor(out, dtype=torch.int32, device=req_mask.device)
 
 
 def greedy_assign_torch(task_prio, task_type, req_mask, req_valid):
@@ -202,10 +364,7 @@ def greedy_assign_torch(task_prio, task_type, req_mask, req_valid):
     nr, ntypes = req_mask.shape
     dev = task_prio.device
     assign = torch.full((nr,), -1, dtype=torch.int32, device=dev)
-    order = torch.sort(-task_prio, stable=True).indices
-    s_prio = task_prio[order]
-    s_type = task_type[order]
-    live = (s_prio > _NEG) & (s_type >= 0) & (s_type < ntypes)
+    order, s_type, live = _live_order(task_prio, task_type, ntypes)
     compat_by_type = (req_mask & req_valid[:, None]).T.contiguous()  # [T, NR]
     open_req = torch.ones((nr,), dtype=torch.bool, device=dev)
     n_open = int(compat_by_type.any(0).sum())

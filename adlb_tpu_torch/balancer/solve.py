@@ -10,9 +10,10 @@ enactment, like the reference's push/RFR races, ``src/adlb.c:2182-2192``).
 Algorithm (single device): exact sequential greedy — tasks in descending
 priority order (stable, so FIFO on ties, matching the reference's
 algebraically-largest-``work_prio`` + seqno contract), each taking the first
-open compatible requester. On the card the whole solve is one launch of the
-hand-written sweep kernel (:mod:`adlb_tpu_torch.balancer.greedy_sweep`); on
-the CPU its plain PyTorch version runs the same steps. This is exactly the
+open compatible requester. On the card the whole solve is one sort and one
+launch of the hand-written kernel (:mod:`adlb_tpu_torch.balancer.greedy_sweep`)
+behind one pinned copy each way (:class:`CudaHandoff`); on the CPU its plain
+PyTorch version runs the same steps. This is exactly the
 matching the reference's per-server ``wq_find_hi_prio`` loop would produce if
 it could see every server's queue at once (reference ``src/xq.c:190-247``) —
 which is the point: same semantics, global scope, O(1) staleness.
@@ -20,6 +21,7 @@ which is the point: same semantics, global scope, O(1) staleness.
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -57,11 +59,83 @@ def solver_inputs_from_numpy(task_prio, task_type, req_mask, req_valid,
                              device) -> tuple:
     """The four packed numpy arrays of :class:`AssignmentSolver` (int32
     [NT], int32 [NT], bool [NR, T], bool [NR]) as tensors on ``device`` —
-    the hand-off that ``jnp.asarray`` is in the JAX package."""
+    the hand-off that ``jnp.asarray`` is in the JAX package. The solver's
+    card route uses :class:`CudaHandoff` instead."""
     return tuple(
         torch.from_numpy(np.ascontiguousarray(a)).to(device)
         for a in (task_prio, task_type, req_mask, req_valid)
     )
+
+
+class CudaHandoff:
+    """The card's device solve for one (NT, NR, T) shape, with buffers kept
+    from solve to solve: a pinned host staging buffer that the four packed
+    arrays are copied into, its device twin, the sort's outputs, and the
+    kernel's output (assign, then the route word) with a pinned host copy.
+    A solve is one H2D copy, one sort, one kernel launch, one D2H copy and
+    one wait. The copies into the staging buffer (memoryview assignment),
+    the two device copies and the launch (the kernel library's, through
+    ctypes.PyDLL) keep the interpreter lock, so the balancer thread gives it
+    up twice per solve, in the sort and in the wait, instead of once per
+    torch op."""
+
+    def __init__(self, nt: int, nr: int, ntypes: int, device) -> None:
+        greedy_sweep.check_shape(nr, ntypes)
+        self.shape = (nt, nr, ntypes)
+        self.device = device
+        sizes = (4 * nt, 4 * nt, nr * ntypes, nr)
+        offs = [0]
+        for n in sizes:
+            offs.append(offs[-1] + -(-n // 256) * 256)  # 256-byte aligned
+        self.nbytes = offs[-1]
+        self.host = torch.empty((max(self.nbytes, 1),), dtype=torch.uint8,
+                                pin_memory=True)
+        self.dev = torch.empty_like(self.host, device=device)
+        self.staging = memoryview(self.host.numpy())
+        #: (byte span of the staging buffer, dtype) per packed array
+        self.spans = tuple(
+            (slice(o, o + n), dt) for o, n, dt in
+            zip(offs, sizes, (np.int32, np.int32, np.bool_, np.bool_)))
+        self.prio = self.dev[:sizes[0]].view(torch.int32)
+        self.sorted = (torch.empty((nt,), dtype=torch.int32, device=device),
+                       torch.empty((nt,), dtype=torch.int64, device=device))
+        self.out = torch.empty((nr + 1,), dtype=torch.int32, device=device)
+        self.host_out = torch.empty((nr + 1,), dtype=torch.int32,
+                                    pin_memory=True)
+        self.out_np = self.host_out.numpy()
+        base = self.dev.data_ptr()
+        self.args = (self.sorted[0].data_ptr(), self.sorted[1].data_ptr(),
+                     base + offs[1], base + offs[2], base + offs[3],
+                     self.out.data_ptr(), nt, nr, ntypes)
+        #: (dst, src, bytes) of the H2D and the D2H copy
+        self.h2d = (base, self.host.data_ptr(), self.nbytes)
+        self.d2h = (self.host_out.data_ptr(), self.out.data_ptr(),
+                    4 * (nr + 1))
+        #: host-clock seconds of the last solve: (hand-off, sort and launch
+        #: enqueue, wait for the result)
+        self.split = (0.0, 0.0, 0.0)
+
+    def solve(self, task_prio, task_type, req_mask, req_valid) -> np.ndarray:
+        """assign[NR] int32 (numpy) for the packed arrays."""
+        t0 = time.perf_counter()
+        for (span, dt), a in zip(self.spans,
+                                 (task_prio, task_type, req_mask, req_valid)):
+            self.staging[span] = memoryview(
+                np.ascontiguousarray(a, dtype=dt)).cast("B")
+        stream = torch.cuda.current_stream(self.device)
+        handle = stream.cuda_stream
+        greedy_sweep.copy_raw(*self.h2d, handle)
+        t1 = time.perf_counter()
+        greedy_sweep.sort_tasks(self.prio, out=self.sorted)
+        greedy_sweep.launch_raw(*self.args, handle)
+        greedy_sweep.copy_raw(*self.d2h, handle)
+        t2 = time.perf_counter()
+        stream.synchronize()
+        nr = self.shape[1]
+        assign = self.out_np[:nr].copy()
+        greedy_sweep.count_route(int(self.out_np[nr]))
+        self.split = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+        return assign
 
 
 def _host_greedy(task_prio, task_type, req_mask, req_valid):
@@ -149,6 +223,9 @@ class AssignmentSolver:
         self.backend = backend
         self.solve_count = 0
         self.host_solve_count = 0
+        #: the card route's buffers, made at the first device solve and
+        #: again when the packed shape changes
+        self.handoff: Optional[CudaHandoff] = None
 
     def set_job_bias(self, job_weights: Optional[dict]) -> bool:
         """Install new fair-share biases for the dict-path packers (the
@@ -160,16 +237,17 @@ class AssignmentSolver:
         self.job_bias = bias
         return True
 
-    def _device_assign(self):
-        if self.device.type == "cuda":
-            return greedy_sweep.greedy_assign_cuda
-        return greedy_sweep.greedy_assign_torch
-
     def _device_solve(self, task_prio, task_type, req_mask, req_valid):
+        solve_counts["device"] += 1
+        if self.device.type == "cuda":
+            shape = (task_prio.shape[0],) + req_mask.shape
+            if self.handoff is None or self.handoff.shape != shape:
+                self.handoff = CudaHandoff(*shape, self.device)
+            return self.handoff.solve(task_prio, task_type, req_mask,
+                                      req_valid)
         inputs = solver_inputs_from_numpy(
             task_prio, task_type, req_mask, req_valid, self.device)
-        solve_counts["device"] += 1
-        return self._device_assign()(*inputs).cpu().numpy()
+        return greedy_sweep.greedy_assign_torch(*inputs).numpy()
 
     def solve(self, snapshots, world) -> list:
         """snapshots: server_rank -> {"tasks": [(seqno, type, prio, len)...],

@@ -7,13 +7,18 @@ no result). Phases:
 
 1. build the greedy-sweep kernel (``adlb_tpu_torch/csrc/greedy_sweep.cu``)
    from the sources in this checkout;
-2. hold the kernel against its plain PyTorch version and against the numpy
-   twin ``_host_greedy`` on edge cases and at the main path's shapes
-   (exact equality: the outputs are integer assignments), and time it;
+2. hold the kernel against its plain PyTorch versions and against the numpy
+   twin ``_host_greedy`` on edge cases and at the main path's shapes, with
+   one instance per kernel route at each shape (exact equality: the outputs
+   are integer assignments; the route the kernel reports must be the one
+   ``requester_classes`` names), and time it: the wrapper, the sort alone,
+   the kernel alone, the plain version;
 3. drive the port's main path: a ``run_world`` with the planned balancer on
    the card, 16 servers x (4096 tasks, 512 requesters), so every device
    solve is a 65536 x 8192 instance; every unit must be consumed exactly
-   once, and every solve must have launched the kernel.
+   once, and every device solve must be exactly one kernel launch. Prints
+   the launches per route and the median in-world solve split on the host
+   clock into hand-off, sort + launch enqueue and wait for the result.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -46,29 +51,28 @@ def card_label() -> str:
         return f"{torch.cuda.get_device_name(0)}, power limit not read"
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median per-call device time with CUDA events, after warm-up."""
+def time_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean device time per call with CUDA events around ``reps`` calls in a
+    row, after warm-up."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def bound_ms(nt: int, nr: int, t: int) -> float:
-    """Least time for the sweep's bytes: every input read once (prio and
-    type int32, mask and valid bool) and assign int32 written once, over
-    the card's memory rate. Its operations are a few per task and a few per
-    mask word: far under the bytes' time."""
-    nbytes = 4 * nt * 2 + nr * t + nr + 4 * nr
+    """Least time for the solve's bytes: every input read once (prio and
+    type int32, mask and valid bool) and assign int32 plus the route word
+    written once, over the card's memory rate. Its operations are a few per
+    task and a few per mask byte: far under the bytes' time."""
+    nbytes = 4 * nt * 2 + nr * t + nr + 4 * (nr + 1)
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -94,6 +98,13 @@ def random_instance(rng, nt, nr, t, pad=0.25, prio_hi=1000):
     return tp, tt, rm, rv
 
 
+def one_type_instance(rng, nt, nr, t):
+    tp, tt, _, rv = random_instance(rng, nt, nr, t)
+    rm = np.zeros((nr, t), dtype=bool)
+    rm[np.arange(nr), rng.integers(0, t, nr)] = True
+    return tp, tt, rm, rv
+
+
 def edge_cases(rng):
     cases = []
     for nt, nr, t in ((16, 8, 2), (64, 32, 4), (200, 130, 6), (300, 60, 4),
@@ -114,11 +125,28 @@ def edge_cases(rng):
     cases.append(("empty masks 500x77", (tp, tt, rm, rv)))
     cases.append(("NR=33", random_instance(rng, 400, 33, 2)))
     cases.append(("multi-job T=64", random_instance(rng, 4096, 700, 64)))
+    tp, tt, _, rv = random_instance(rng, 30000, 9000, 7)
+    rm = np.arange(7)[None, :] < rng.integers(1, 8, 9000)[:, None]
+    cases.append(("nested masks 30000x9000x7", (tp, tt, rm, rv)))
+    cases.append(("one type T=64 20000x7000",
+                  one_type_instance(rng, 20000, 7000, 64)))
+    cases.append(("one type T=70 5000x2000",
+                  one_type_instance(rng, 5000, 2000, 70)))
+    cases.append(("random T=11 5000x2000", random_instance(rng, 5000, 2000, 11)))
     return cases
 
 
+#: one instance per kernel route at the main path's shapes: bench.py's
+#: generator (one type per requester), random masks at T=4 (pad 0.25, valid
+#: 0.8), random masks at T=64
+ROUTE_CASES = (("partition", 4, lambda rng, nt, nr: bench_instance(rng, nt, nr)),
+               ("classes", 4, lambda rng, nt, nr: random_instance(rng, nt, nr, 4)),
+               ("sweep", 64, lambda rng, nt, nr: random_instance(rng, nt, nr, 64)))
+
+
 def check_kernel(gs, host_greedy, report):
-    """Phase 2: exact agreement and times. Returns the kernel's entry."""
+    """Phase 2: exact agreement, routes and times. Returns the kernel's
+    numbers: the main path's route at 65536x8192 and every route's."""
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     err = 0
@@ -128,47 +156,70 @@ def check_kernel(gs, host_greedy, report):
             return 0
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
-    for name, arrs in edge_cases(rng):
+    def run(name, arrs, want_route=None):
+        """Kernel, route and every plain version on one instance; returns
+        the card tensors and the kernel's result."""
+        nonlocal err
         ins = [torch.from_numpy(a).to(dev) for a in arrs]
-        got = gs.greedy_assign_cuda(*ins)
+        got, code = gs.solve_cuda(*ins)
         torch.cuda.synchronize()
-        plain = gs.greedy_assign_torch(*ins)
+        route = gs.ROUTES[int(code) - 1]
+        classes = gs.requester_classes(ins[2], ins[3])
+        if route != classes.route or want_route not in (None, route):
+            raise AssertionError(
+                f"{name}: kernel took route {route!r}, requester_classes "
+                f"names {classes.route!r}, expected {want_route!r}")
         want = host_greedy(*arrs)
+        plain = gs.greedy_assign_torch(*ins)
         err = max(err, diff(got, plain))
-        if not (torch.equal(got, plain)
-                and np.array_equal(got.cpu().numpy(), want)):
+        ok = torch.equal(got, plain) and np.array_equal(got.cpu().numpy(), want)
+        plains = ["plain"]
+        if route == "partition":
+            ok = ok and torch.equal(got, gs.greedy_assign_partition_torch(*ins))
+            plains.append("plain partition")
+        if route != "sweep":
+            ok = ok and torch.equal(got, gs.greedy_assign_classes_torch(*ins))
+            plains.append("plain classes")
+        if not ok:
             raise AssertionError(f"kernel disagrees on case {name!r}")
-        report(f"phase 2: {name}: kernel == plain == host_greedy")
-    main = None
+        report(f"phase 2: {name}: route {route}; kernel == "
+               f"{' == '.join(plains)} == host_greedy")
+        return ins, got, route
+
+    for name, arrs in edge_cases(rng):
+        run(name, arrs)
+    by_route = {}
     for nt, nr in ((4096, 512), (16384, 2048), (65536, 8192)):
-        arrs = bench_instance(rng, nt, nr)
-        ins = [torch.from_numpy(a).to(dev) for a in arrs]
-        got = gs.greedy_assign_cuda(*ins)
-        torch.cuda.synchronize()
-        want = host_greedy(*arrs)
-        t0 = time.perf_counter()
-        plain = gs.greedy_assign_torch(*ins)
-        torch.cuda.synchronize()
-        plain_once = time.perf_counter() - t0
-        err = max(err, diff(got, plain))
-        if not (np.array_equal(got.cpu().numpy(), want)
-                and torch.equal(got, plain)):
-            raise AssertionError(f"kernel disagrees at {nt}x{nr}")
-        ms = time_ms(lambda: gs.greedy_assign_cuda(*ins), reps=50)
-        plain_ms = time_ms(lambda: gs.greedy_assign_torch(*ins),
-                           reps=3 if plain_once < 5 else 1, warmup=0)
-        prep = gs.prepare_sweep(*ins)
-        prep_ms = time_ms(lambda: gs.prepare_sweep(*ins), reps=50)
-        sweep_ms = time_ms(lambda: gs.launch_sweep(*prep, nr), reps=50)
-        bnd = bound_ms(nt, nr, 4)
-        report(f"phase 2: {nt}x{nr} T=4: kernel == plain == host_greedy; "
-               f"kernel {ms:.4f} ms (torch pre-pass {prep_ms:.4f} ms, "
-               f"sweep launch alone {sweep_ms:.4f} ms), plain "
-               f"{plain_ms:.1f} ms, bound {bnd:.6f} ms (bytes), matched "
-               f"{int((got >= 0).sum())}")
-        main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd}
-    main["max_abs_err"] = err
-    return main
+        for route, t, make in ROUTE_CASES:
+            ins, got, _ = run(f"{route} {nt}x{nr} T={t}", make(rng, nt, nr),
+                              route)
+            t0 = time.perf_counter()
+            gs.greedy_assign_torch(*ins)
+            torch.cuda.synchronize()
+            plain_once = time.perf_counter() - t0
+            ms = time_ms(lambda: gs.greedy_assign_cuda(*ins), reps=50)
+            sort_ms = time_ms(lambda: gs.sort_tasks(ins[0]), reps=50)
+            # the kernel alone: launches from ready pointers, so the host
+            # keeps ahead of the card
+            s_prio, order = gs.sort_tasks(ins[0])
+            out = torch.empty((nr + 1,), dtype=torch.int32, device=dev)
+            gs.launch(s_prio, order, *ins[1:], out)
+            args = [x.data_ptr() for x in (s_prio, order, *ins[1:], out)]
+            stream = torch.cuda.current_stream().cuda_stream
+            kernel_ms = time_ms(
+                lambda: gs.launch_raw(*args, nt, nr, t, stream), reps=200)
+            plain_ms = time_ms(lambda: gs.greedy_assign_torch(*ins),
+                               reps=3 if plain_once < 1 else 1, warmup=0)
+            bnd = bound_ms(nt, nr, t)
+            report(f"phase 2: {route} {nt}x{nr} T={t}: wrapper {ms:.4f} ms "
+                   f"(sort alone {sort_ms:.4f} ms, kernel alone "
+                   f"{kernel_ms:.4f} ms), plain {plain_ms:.1f} ms, bound "
+                   f"{bnd:.6f} ms (bytes), matched {int((got >= 0).sum())}")
+            if nt == 65536:
+                by_route[route] = {"ms": ms, "sort_ms": sort_ms,
+                                   "kernel_ms": kernel_ms,
+                                   "plain_ms": plain_ms, "bound_ms": bnd}
+    return by_route, err
 
 
 def run_main_path(device="cuda", nunits=10_000, napps=64, nservers=16,
@@ -254,21 +305,29 @@ def main() -> int:
         if "ptxas" in ln:
             report(f"phase 1: {ln.strip()}")
 
-    k1 = check_kernel(gs, solve._host_greedy, report)
+    by_route, max_err = check_kernel(gs, solve._host_greedy, report)
 
     # host-clock time of each device solve in the world (numpy in, numpy
-    # out: hand-off, pre-pass, kernel and the copy back)
-    solve_s = []
+    # out) and its split: hand-off (numpy copies into the pinned buffer and
+    # the H2D enqueue), sort + launch + D2H enqueue, wait for the result
+    solve_s, splits = [], []
     untimed = solve.AssignmentSolver._device_solve
 
     def timed(self, *arrays):
         t = time.perf_counter()
         out = untimed(self, *arrays)
         solve_s.append(time.perf_counter() - t)
+        splits.append(self.handoff.split)
         return out
+
+    def split_text(rows) -> str:
+        med = [1e3 * statistics.median(col) for col in zip(*rows)]
+        return (f"hand-off {med[0]:.3f} ms, sort + launch enqueue "
+                f"{med[1]:.3f} ms, wait for the result {med[2]:.3f} ms")
 
     solve.AssignmentSolver._device_solve = timed
     gs.launches = 0
+    gs.route_launches.update(dict.fromkeys(gs.ROUTES, 0))
     solve.solve_counts.update(device=0, host=0)
     nunits = 10_000
     try:
@@ -276,34 +335,39 @@ def main() -> int:
     finally:
         solve.AssignmentSolver._device_solve = untimed
     launches = gs.launches
+    route_launches = dict(gs.route_launches)
     counts = dict(solve.solve_counts)
     report(f"phase 3: world 64 apps x 16 servers, {nunits} units consumed "
            f"once in {wall:.3f} s ({nunits / wall:.1f} units/s); device "
            f"solves {counts['device']}, host solves {counts['host']}, "
-           f"kernel launches {launches}")
+           f"kernel launches {launches}, by route {route_launches}")
     if solve_s:
         report(f"phase 3: device solves 65536x8192 took "
                f"{sum(solve_s):.3f} s in all ({100 * sum(solve_s) / wall:.1f}% "
                f"of the world's wall time), median "
                f"{1e3 * statistics.median(solve_s):.3f} ms, max "
-               f"{1e3 * max(solve_s):.3f} ms each")
+               f"{1e3 * max(solve_s):.3f} ms each; median split: "
+               f"{split_text(splits)}")
     # the same solve (numpy in, numpy out) with no world running: the
     # yardstick for what the world's solves spend waiting on the host
     alone = solve.AssignmentSolver(types=(1, 2, 3, 4), max_tasks=4096,
                                    max_requesters=512, host_threshold_reqs=0)
     arrs = bench_instance(np.random.default_rng(1), 65536, 8192)
-    alone_s = []
+    alone_s, alone_splits = [], []
     for _ in range(21):
         t = time.perf_counter()
         alone._device_solve(*arrs)
         alone_s.append(time.perf_counter() - t)
+        alone_splits.append(alone.handoff.split)
     report(f"phase 3: the same 65536x8192 device solve with no world "
            f"running: median {1e3 * statistics.median(alone_s[1:]):.3f} ms "
-           f"on the host clock")
+           f"on the host clock; median split: {split_text(alone_splits[1:])}")
     if launches == 0 or counts["host"] != 0 \
-            or launches != counts["device"]:
-        raise AssertionError(f"main path did not run on the kernel: "
-                             f"launches={launches} counts={counts}")
+            or launches != counts["device"] \
+            or sum(route_launches.values()) != launches:
+        raise AssertionError(f"main path did not run one kernel launch per "
+                             f"device solve: launches={launches} "
+                             f"routes={route_launches} counts={counts}")
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
@@ -311,18 +375,23 @@ def main() -> int:
     if leaked:
         raise AssertionError(f"JAX or the JAX package was imported: {leaked}")
 
+    # the main path's route (the world's masks partition the types) at the
+    # main path's shape; every route's numbers ride along
+    main = by_route["partition"]
     print(json.dumps({"kernels": [{
         "name": "greedy_sweep",
         "route": "cuda",
         "source": "adlb_tpu_torch/csrc/greedy_sweep.cu",
         "replaces": "adlb_tpu/balancer/pallas_solve.py:63",
         "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
+        "max_abs_err": max_err,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "launches_by_route": route_launches,
+        "by_route_65536x8192": by_route,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,6 @@
-"""Card-only tests of the port's CUDA kernel (the kernel has no CPU mode).
+"""Card-only tests of the port's CUDA kernel (the kernel has no CPU mode):
+every route at the main path's shape, the route the kernel reports against
+``requester_classes``, and one launch per device solve.
 
 They skip without a CUDA device. This file imports neither JAX nor the
 JAX package, so it also runs where JAX is not installed:
@@ -11,7 +13,7 @@ import pytest
 import torch
 
 from adlb_tpu_torch.balancer import greedy_sweep
-from adlb_tpu_torch.balancer.solve import _NEG, _host_greedy
+from adlb_tpu_torch.balancer.solve import _NEG, AssignmentSolver, _host_greedy
 
 
 def _random_instance(rng, nt, nr, t, pad=0.25):
@@ -32,6 +34,18 @@ def _bench_instance(rng, nt, nr, t=4):
     return tp, tt, rm, np.ones((nr,), dtype=bool)
 
 
+#: one 65536 x 8192 instance per route: bench.py's generator, random masks
+#: at T=4, random masks at T=64
+ROUTE_CASES = {"partition": lambda rng: _bench_instance(rng, 65536, 8192),
+               "classes": lambda rng: _random_instance(rng, 65536, 8192, 4),
+               "sweep": lambda rng: _random_instance(rng, 65536, 8192, 64)}
+
+
+def _route(arrs):
+    return greedy_sweep.requester_classes(
+        torch.from_numpy(arrs[2]), torch.from_numpy(arrs[3])).route
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -42,16 +56,49 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("nt,nr,t", [
     (16, 8, 2), (200, 130, 6), (1024, 9, 2), (5000, 1000, 3),
-    (4096, 700, 64), (9000, 33, 4)])
+    (4096, 700, 64), (9000, 33, 4), (30000, 9000, 7), (5000, 2000, 70)])
 def test_kernel_matches_plain_and_host(card, nt, nr, t):
     rng = np.random.default_rng(nt + nr + t)
     for _ in range(3):
         arrs = _random_instance(rng, nt, nr, t)
         ins = [torch.from_numpy(a).to(card) for a in arrs]
-        got = greedy_sweep.greedy_assign(*ins)
+        got, code = greedy_sweep.solve_cuda(*ins)
         torch.cuda.synchronize()
         assert torch.equal(got, greedy_sweep.greedy_assign_torch(*ins))
         np.testing.assert_array_equal(got.cpu().numpy(), _host_greedy(*arrs))
+        assert greedy_sweep.ROUTES[int(code) - 1] == _route(arrs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(ROUTE_CASES))
+def test_each_route_at_main_path_shape(card, route):
+    arrs = ROUTE_CASES[route](np.random.default_rng(17))
+    assert _route(arrs) == route
+    ins = [torch.from_numpy(a).to(card) for a in arrs]
+    got, code = greedy_sweep.solve_cuda(*ins)
+    torch.cuda.synchronize()
+    assert greedy_sweep.ROUTES[int(code) - 1] == route
+    np.testing.assert_array_equal(got.cpu().numpy(), _host_greedy(*arrs))
+    assert torch.equal(got, greedy_sweep.greedy_assign_torch(*ins))
+
+
+@pytest.mark.cuda
+def test_solver_device_solve_is_one_launch(card):
+    """The main path's hand-off: one launch per device solve, counted under
+    the route it took, the buffers kept while the shape holds."""
+    solver = AssignmentSolver(types=(1, 2, 3, 4), max_tasks=4096,
+                              max_requesters=512, host_threshold_reqs=0)
+    rng = np.random.default_rng(19)
+    for route in ("partition", "classes", "partition"):
+        arrs = ROUTE_CASES[route](rng)
+        before, routes = greedy_sweep.launches, dict(greedy_sweep.route_launches)
+        got = solver._device_solve(*arrs)
+        assert greedy_sweep.launches == before + 1
+        assert greedy_sweep.route_launches[route] == routes[route] + 1
+        np.testing.assert_array_equal(got, _host_greedy(*arrs))
+    handoff = solver.handoff
+    solver._device_solve(*ROUTE_CASES["partition"](rng))
+    assert solver.handoff is handoff
 
 
 @pytest.mark.cuda

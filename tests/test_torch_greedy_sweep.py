@@ -127,17 +127,26 @@ def test_zero_requesters():
     assert _torch_plain(arrs).shape == (0,)
 
 
-def test_type_bitmasks_pack_valid_and_mask():
+def test_requester_classes_group_valid_masks_in_index_order():
+    """The kernel's classes: requesters with the same valid, non-empty type
+    mask, each class's members in index order."""
     rng = np.random.default_rng(3)
     for nr in (1, 31, 32, 33, 100):
         rm = rng.random((nr, 3)) < 0.5
         rv = rng.random(nr) < 0.7
-        words = greedy_sweep.type_bitmasks(
-            torch.from_numpy(rm), torch.from_numpy(rv)).numpy()
-        assert words.shape == (3, (nr + 31) // 32)
-        bits = np.unpackbits(words.view(np.uint32).view(np.uint8),
-                             bitorder="little").reshape(3, -1)[:, :nr]
-        np.testing.assert_array_equal(bits.astype(bool), (rm & rv[:, None]).T)
+        classes = greedy_sweep.requester_classes(torch.from_numpy(rm),
+                                                 torch.from_numpy(rv))
+        rows = rm & rv[:, None]
+        held = rows.any(1)
+        np.testing.assert_array_equal(classes.class_id.numpy() >= 0, held)
+        assert sum(m.numel() for m in classes.members) == held.sum()
+        for c, members in enumerate(classes.members):
+            m = members.numpy()
+            assert (np.diff(m) > 0).all()
+            np.testing.assert_array_equal(rows[m], np.broadcast_to(
+                classes.types[c].numpy(), (m.size, 3)))
+            np.testing.assert_array_equal(
+                np.flatnonzero(classes.class_id.numpy() == c), m)
 
 
 def test_wrapper_routes_by_device_and_checks_inputs():
