@@ -17,7 +17,9 @@ requester got, or -1.
   ``"partition"`` when every type lies in at most one class (a prefix
   count), ``"classes"`` when T <= 10 and at most 32 classes exist (a chain
   with one warp lane per class), and ``"sweep"`` otherwise (per-type
-  requester bitmasks). :func:`requester_classes` states the rule.
+  requester bitmasks). :func:`requester_classes` states the rule. Every
+  launch goes through :meth:`Workspace.run` (the card buffers of one
+  shape): :func:`solve_cuda` and the solver's hand-off alike.
 * On CPU tensors it runs :func:`greedy_assign_torch`, the plain version,
   which repeats the JAX package's ``_greedy_assign`` scan step by step.
   :func:`greedy_assign_partition_torch` and :func:`greedy_assign_classes_torch`
@@ -51,11 +53,9 @@ BUILD_DIR = _PKG / "_build"
 #: the kernel's routes; the kernel writes route code i + 1 for ROUTES[i]
 ROUTES = ("partition", "classes", "sweep")
 
-#: kernel launches so far; chip_smoke.py zeroes it around the main path
+#: kernel launches so far, counted on the host at each launch;
+#: chip_smoke.py zeroes it (with :func:`reset_counts`) around the main path
 launches = 0
-#: launches per route, counted where the route word is read back on the
-#: host (the solver's device solve)
-route_launches = dict.fromkeys(ROUTES, 0)
 
 _lib = None
 _lib_path = None
@@ -70,6 +70,12 @@ def _nvcc() -> str:
         raise RuntimeError("nvcc not found: the greedy-sweep kernel cannot "
                            "be built (CUDA toolkit missing)")
     return nvcc
+
+
+def _raise_on(err: int, what: str, lib=None) -> None:
+    if err != 0:
+        text = (lib or _lib).adlb_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({text})")
 
 
 def build() -> Path:
@@ -102,42 +108,49 @@ def build() -> Path:
         # PyDLL keeps the interpreter lock across the microsecond-long
         # launch call instead of giving it up and winning it back
         lib = ctypes.PyDLL(str(out))
-        lib.adlb_greedy_sweep_init.argtypes = []
-        lib.adlb_greedy_sweep_init.restype = ctypes.c_int
-        lib.adlb_greedy_sweep.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.adlb_greedy_sweep.restype = ctypes.c_int
-        lib.adlb_greedy_sweep_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.adlb_greedy_sweep_smem.restype = ctypes.c_longlong
-        lib.adlb_greedy_sweep_max_smem.argtypes = []
-        lib.adlb_greedy_sweep_max_smem.restype = ctypes.c_longlong
-        lib.adlb_copy_async.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                        ctypes.c_longlong, ctypes.c_void_p]
-        lib.adlb_copy_async.restype = ctypes.c_int
-        lib.adlb_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.adlb_cuda_error_string.restype = ctypes.c_char_p
-        err = lib.adlb_greedy_sweep_init()
-        if err != 0:
-            raise RuntimeError(
-                f"greedy sweep init failed: CUDA error {err} "
-                f"({lib.adlb_cuda_error_string(err).decode()})")
+        sigs = {
+            "adlb_greedy_sweep_init": ([], ctypes.c_int),
+            "adlb_greedy_sweep": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                                  + [ctypes.c_void_p], ctypes.c_int),
+            "adlb_greedy_sweep_scratch_bytes": ([ctypes.c_int] * 2,
+                                                ctypes.c_longlong),
+            "adlb_greedy_sweep_route_counts": (
+                [ctypes.POINTER(ctypes.c_ulonglong)], ctypes.c_int),
+            "adlb_greedy_sweep_reset_route_counts": ([], ctypes.c_int),
+            "adlb_copy_async": ([ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_longlong, ctypes.c_void_p],
+                                ctypes.c_int),
+            "adlb_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
+        }
+        for name, (argtypes, restype) in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
+        _raise_on(lib.adlb_greedy_sweep_init(), "greedy sweep init", lib)
         _lib, _lib_path = lib, out
         return out
 
 
-def check_shape(nr: int, ntypes: int) -> None:
-    """Raise ValueError when NR requesters x T types need more shared
-    memory than a block has (builds the kernel first). On an H100 that is
-    past about 46,000 requesters, or past about 22,700 at T = 64: the class
-    member lists (one word per requester) and the per-type bitmasks (T + 1
-    bits per requester) live in shared memory."""
-    build()
-    need = _lib.adlb_greedy_sweep_smem(nr, ntypes)
-    have = _lib.adlb_greedy_sweep_max_smem()
-    if need > have:
-        raise ValueError(
-            f"greedy sweep needs {need} bytes of shared memory for {nr} "
-            f"requesters x {ntypes} types; a block may use {have}")
+def route_launches() -> dict:
+    """Launches per route on the current card, as the kernel tallies them
+    itself (each launch adds one under the route it took); all zero before
+    the kernel is loaded."""
+    if _lib is None:
+        return dict.fromkeys(ROUTES, 0)
+    counts = (ctypes.c_ulonglong * len(ROUTES))()
+    torch.cuda.synchronize()
+    _raise_on(_lib.adlb_greedy_sweep_route_counts(counts),
+              "reading the route counts")
+    return dict(zip(ROUTES, counts))
+
+
+def reset_counts() -> None:
+    """Zero :data:`launches` and the kernel's per-route tally."""
+    global launches
+    launches = 0
+    if _lib is not None:
+        torch.cuda.synchronize()
+        _raise_on(_lib.adlb_greedy_sweep_reset_route_counts(),
+                  "resetting the route counts")
 
 
 def _check(task_prio, task_type, req_mask, req_valid) -> None:
@@ -166,57 +179,52 @@ def sort_tasks(task_prio, out=None):
     return torch.sort(task_prio, descending=True, stable=True, out=out)
 
 
-def launch_raw(s_prio: int, order: int, task_type: int, req_mask: int,
-               req_valid: int, out: int, nt: int, nr: int, ntypes: int,
-               stream: int) -> None:
-    """One launch from device pointers (ints) on the CUDA stream whose
-    handle is ``stream``; the caller has checked the buffers (see
-    :func:`launch`) and the shape (:func:`check_shape`)."""
-    global launches
-    err = _lib.adlb_greedy_sweep(s_prio, order, task_type, req_mask,
-                                 req_valid, out, nt, nr, ntypes, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"greedy sweep launch failed: CUDA error {err} "
-            f"({_lib.adlb_cuda_error_string(err).decode()})")
-    launches += 1
-
-
 def copy_raw(dst: int, src: int, nbytes: int, stream: int) -> None:
     """One asynchronous copy of ``nbytes`` between pinned host memory and
     the card (pointers as ints) on the CUDA stream whose handle is
     ``stream``. Unlike a torch copy it keeps the interpreter lock."""
-    err = _lib.adlb_copy_async(dst, src, nbytes, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"copy of {nbytes} bytes failed: CUDA error {err} "
-            f"({_lib.adlb_cuda_error_string(err).decode()})")
+    _raise_on(_lib.adlb_copy_async(dst, src, nbytes, stream),
+              f"copy of {nbytes} bytes")
 
 
-def launch(s_prio, order, task_type, req_mask, req_valid, out) -> None:
-    """Launch the kernel on the current stream: (s_prio, order) from
-    :func:`sort_tasks`, the task types, masks and validity as given to
-    :func:`greedy_assign`; it writes ``out[:NR]`` (assign) and ``out[NR]``
-    (the route code)."""
-    dev = s_prio.device
-    nr, ntypes = req_mask.shape
-    for name, x, dtype, shape in (
-            ("s_prio", s_prio, torch.int32, task_type.shape),
-            ("order", order, torch.int64, task_type.shape),
-            ("task_type", task_type, torch.int32, s_prio.shape),
-            ("req_mask", req_mask, torch.bool, (nr, ntypes)),
-            ("req_valid", req_valid, torch.bool, (nr,)),
-            ("out", out, torch.int32, (nr + 1,))):
-        if (x.device.type != "cuda" or x.device != dev or x.dtype != dtype
-                or not x.is_contiguous() or tuple(x.shape) != tuple(shape)):
-            raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
-                             f"shape {tuple(shape)} on the CUDA device of "
-                             f"s_prio")
-    check_shape(nr, ntypes)
-    launch_raw(s_prio.data_ptr(), order.data_ptr(), task_type.data_ptr(),
-               req_mask.data_ptr(), req_valid.data_ptr(), out.data_ptr(),
-               s_prio.shape[0], nr, ntypes,
-               torch.cuda.current_stream(dev).cuda_stream)
+class Workspace:
+    """The card buffers of the solve at one (NT, NR, T) shape, reused from
+    solve to solve: the sort's outputs, the kernel's output (``out[:NR]``
+    assign, ``out[NR]`` the route code) and, where a route's working set
+    does not fit in shared memory (past about 47,000 requesters, or about
+    23,000 at T = 64, on an H100), the kernel's scratch buffer. :meth:`run`
+    is the one sort and the one launch of every device solve; building the
+    kernel comes first."""
+
+    def __init__(self, nt: int, nr: int, ntypes: int, device) -> None:
+        build()
+        self.shape = (nt, nr, ntypes)
+        self.sorted = (torch.empty((nt,), dtype=torch.int32, device=device),
+                       torch.empty((nt,), dtype=torch.int64, device=device))
+        self.out = torch.empty((nr + 1,), dtype=torch.int32, device=device)
+        nbytes = _lib.adlb_greedy_sweep_scratch_bytes(nr, ntypes)
+        self.scratch = (torch.empty((nbytes,), dtype=torch.uint8,
+                                    device=device) if nbytes else None)
+        self._sorted_ptrs = tuple(x.data_ptr() for x in self.sorted)
+        self._out_ptrs = (self.out.data_ptr(),
+                          self.scratch.data_ptr() if nbytes else None)
+
+    def launch(self, task_type: int, req_mask: int, req_valid: int,
+               stream: int) -> None:
+        """One launch on the sorted tasks, from the device pointers (ints)
+        of the task types [NT] int32, the masks [NR, T] bool and the
+        validity [NR] bool, on the CUDA stream whose handle is ``stream``."""
+        global launches
+        _raise_on(_lib.adlb_greedy_sweep(
+            *self._sorted_ptrs, task_type, req_mask, req_valid,
+            *self._out_ptrs, *self.shape, stream), "greedy sweep launch")
+        launches += 1
+
+    def run(self, task_prio, task_type: int, req_mask: int, req_valid: int,
+            stream: int) -> None:
+        """Sort ``task_prio`` (a card tensor) and launch: see :meth:`launch`."""
+        sort_tasks(task_prio, out=self.sorted)
+        self.launch(task_type, req_mask, req_valid, stream)
 
 
 def solve_cuda(task_prio, task_type, req_mask, req_valid):
@@ -224,15 +232,16 @@ def solve_cuda(task_prio, task_type, req_mask, req_valid):
     Returns (assign [NR] int32, route code [] int32), both on the card;
     ``ROUTES[code - 1]`` names the route."""
     _check(task_prio, task_type, req_mask, req_valid)
-    if task_prio.device.type != "cuda":
+    dev = task_prio.device
+    if dev.type != "cuda":
         raise ValueError("solve_cuda takes CUDA tensors")
-    nr = req_mask.shape[0]
-    with torch.cuda.device(task_prio.device):
-        out = torch.empty((nr + 1,), dtype=torch.int32,
-                          device=task_prio.device)
-        s_prio, order = sort_tasks(task_prio)
-        launch(s_prio, order, task_type, req_mask, req_valid, out)
-    return out[:nr], out[nr]
+    nr, ntypes = req_mask.shape
+    with torch.cuda.device(dev):
+        work = Workspace(task_prio.shape[0], nr, ntypes, dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        work.run(task_prio, task_type.data_ptr(), req_mask.data_ptr(),
+                 req_valid.data_ptr(), stream)
+    return work.out[:nr], work.out[nr]
 
 
 def greedy_assign_cuda(task_prio, task_type, req_mask, req_valid):
@@ -240,13 +249,6 @@ def greedy_assign_cuda(task_prio, task_type, req_mask, req_valid):
     if task_prio.device.type != "cuda":
         raise ValueError("greedy_assign_cuda takes CUDA tensors")
     return solve_cuda(task_prio, task_type, req_mask, req_valid)[0]
-
-
-def count_route(code: int) -> str:
-    """Count one launch under the route whose code the kernel wrote."""
-    name = ROUTES[code - 1]
-    route_launches[name] += 1
-    return name
 
 
 class RequesterClasses(NamedTuple):

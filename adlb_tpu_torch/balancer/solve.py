@@ -70,18 +70,19 @@ def solver_inputs_from_numpy(task_prio, task_type, req_mask, req_valid,
 class CudaHandoff:
     """The card's device solve for one (NT, NR, T) shape, with buffers kept
     from solve to solve: a pinned host staging buffer that the four packed
-    arrays are copied into, its device twin, the sort's outputs, and the
-    kernel's output (assign, then the route word) with a pinned host copy.
-    A solve is one H2D copy, one sort, one kernel launch, one D2H copy and
-    one wait. The copies into the staging buffer (memoryview assignment),
-    the two device copies and the launch (the kernel library's, through
+    arrays are copied into, its device twin, the kernel's
+    :class:`~adlb_tpu_torch.balancer.greedy_sweep.Workspace`, and a pinned
+    host copy of the kernel's output (assign, then the route word). A solve
+    is one H2D copy, one sort, one kernel launch, one D2H copy and one wait.
+    The copies into the staging buffer (memoryview assignment), the two
+    device copies and the launch (the kernel library's, through
     ctypes.PyDLL) keep the interpreter lock, so the balancer thread gives it
     up twice per solve, in the sort and in the wait, instead of once per
     torch op."""
 
     def __init__(self, nt: int, nr: int, ntypes: int, device) -> None:
-        greedy_sweep.check_shape(nr, ntypes)
-        self.shape = (nt, nr, ntypes)
+        self.work = greedy_sweep.Workspace(nt, nr, ntypes, device)
+        self.shape = self.work.shape
         self.device = device
         sizes = (4 * nt, 4 * nt, nr * ntypes, nr)
         offs = [0]
@@ -97,19 +98,15 @@ class CudaHandoff:
             (slice(o, o + n), dt) for o, n, dt in
             zip(offs, sizes, (np.int32, np.int32, np.bool_, np.bool_)))
         self.prio = self.dev[:sizes[0]].view(torch.int32)
-        self.sorted = (torch.empty((nt,), dtype=torch.int32, device=device),
-                       torch.empty((nt,), dtype=torch.int64, device=device))
-        self.out = torch.empty((nr + 1,), dtype=torch.int32, device=device)
+        base = self.dev.data_ptr()
+        #: device pointers of the task types, masks and validity
+        self.inputs = (base + offs[1], base + offs[2], base + offs[3])
         self.host_out = torch.empty((nr + 1,), dtype=torch.int32,
                                     pin_memory=True)
         self.out_np = self.host_out.numpy()
-        base = self.dev.data_ptr()
-        self.args = (self.sorted[0].data_ptr(), self.sorted[1].data_ptr(),
-                     base + offs[1], base + offs[2], base + offs[3],
-                     self.out.data_ptr(), nt, nr, ntypes)
         #: (dst, src, bytes) of the H2D and the D2H copy
         self.h2d = (base, self.host.data_ptr(), self.nbytes)
-        self.d2h = (self.host_out.data_ptr(), self.out.data_ptr(),
+        self.d2h = (self.host_out.data_ptr(), self.work.out.data_ptr(),
                     4 * (nr + 1))
         #: host-clock seconds of the last solve: (hand-off, sort and launch
         #: enqueue, wait for the result)
@@ -126,14 +123,11 @@ class CudaHandoff:
         handle = stream.cuda_stream
         greedy_sweep.copy_raw(*self.h2d, handle)
         t1 = time.perf_counter()
-        greedy_sweep.sort_tasks(self.prio, out=self.sorted)
-        greedy_sweep.launch_raw(*self.args, handle)
+        self.work.run(self.prio, *self.inputs, handle)
         greedy_sweep.copy_raw(*self.d2h, handle)
         t2 = time.perf_counter()
         stream.synchronize()
-        nr = self.shape[1]
-        assign = self.out_np[:nr].copy()
-        greedy_sweep.count_route(int(self.out_np[nr]))
+        assign = self.out_np[:self.shape[1]].copy()
         self.split = (t1 - t0, t2 - t1, time.perf_counter() - t2)
         return assign
 

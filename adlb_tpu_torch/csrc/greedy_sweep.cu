@@ -17,7 +17,9 @@
 //                          type >= T is not live
 //   mask      [NR, T] u8   bool: requester r accepts type t
 //   valid     [NR] u8      bool: requester r is real
-// Output: out[NR + 1] int32: assign, then the route taken (1, 2 or 3).
+// Output: out[NR + 1] int32: assign, then the route taken (1, 2 or 3). The
+// kernel also tallies its launches per route in device memory
+// (adlb_greedy_sweep_route_counts).
 //
 // What bounds it on this card: the greedy is a dependent chain, one step per
 // live task until no open requester is left; its bytes (about 16 * NT +
@@ -39,19 +41,23 @@
 //   R2 class chain: T <= 10 and at most 32 classes. One warp runs the chain
 //      with one lane per class; a step is one __reduce_min_sync over the
 //      next members of the classes that hold the type. The winner advances
-//      to a member it prefetched from shared memory. A type whose classes
+//      to a member it prefetched from the member lists. A type whose classes
 //      are all used up is dropped from a live-type bitmask, so its later
 //      tasks are filtered 32 at a time by one __ballot_sync.
 //   R3 bitmask sweep: everything else (T > 10 with overlapping classes,
 //      more than 32 classes). One requester bitmask per type and the open
-//      bitmask live in shared memory; a step ANDs the type's row with the
+//      bitmask form its working set; a step ANDs the type's row with the
 //      open bits from a forward-only per-type cursor, 32 words per probe,
 //      and takes the first set bit with __ballot_sync / __ffs.
 // In R2 and R3 the other warps stage the next tiles of ordered (type,
 // index) pairs into shared memory while warp 0 runs the chain. The class
 // member lists (R1, R2) are built in index order by a stable counting
-// partition in shared memory.
+// partition. A route's working set (the member lists, one word per
+// requester; or R3's T + 1 bitmask rows) lives in shared memory when it
+// fits beside the tiles, else in a scratch buffer in device memory that the
+// caller provides (adlb_greedy_sweep_scratch_bytes), so any NR runs.
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 
@@ -72,6 +78,16 @@ constexpr int kNeg = -2147483647;            // padding priority
 constexpr int kNone = INT_MAX;
 
 enum Route { kPartition = 1, kClasses = 2, kSweep = 3 };
+
+__device__ unsigned long long g_route_launches[3];  // launches per route
+
+// Words of a route's working set: the member lists (R1, R2) or R3's
+// typebits [T][W], open bits [W] and one cursor per type.
+__host__ __device__ __forceinline__ long long region_words(int route, int nr,
+                                                           int ntypes) {
+  const long long nwords = (nr + 31) / 32;
+  return route == kSweep ? (ntypes + 1LL) * nwords + ntypes : (long long)nr;
+}
 
 struct Shared {
   unsigned long long tand[kPatTypes];  // AND of the patterns holding type t
@@ -202,151 +218,19 @@ __device__ __forceinline__ void stage(int* tile_type, int* tile_order,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-greedy_sweep_kernel(const int* __restrict__ s_prio,
-                    const long long* __restrict__ order,
-                    const int* __restrict__ task_type,
-                    const unsigned char* __restrict__ mask,
-                    const unsigned char* __restrict__ valid,
-                    int* __restrict__ out, int nt, int nr, int ntypes,
-                    bool vec) {
-  __shared__ Shared s;
-  extern __shared__ int dyn[];
+// Everything after the choice of route: the member lists, then the route
+// itself, with its working set at `region`. Every thread of the block calls
+// it.
+__device__ __forceinline__ void run_route(
+    Shared& s, int* region, const long long* __restrict__ order,
+    const int* __restrict__ task_type, const unsigned char* __restrict__ mask,
+    const unsigned char* __restrict__ valid, int* __restrict__ out, int nr,
+    int ntypes, bool vec, int* tile_type, int* tile_order, int route,
+    int nclasses, int nlive) {
   const int nwords = (nr + 31) / 32;
-  // member lists (R1, R2) or typebits + open bits (R3), then the tiles
-  int* region = dyn;
-  const int region_len = max(nr, (ntypes + 1) * nwords + ntypes);
-  int* tile_type = dyn + region_len;  // [2][kTile]
-  int* tile_order = tile_type + 2 * kTile;
-
   const int tid = threadIdx.x;
   const int lane = lane_id();
   const int warp = tid >> 5;
-  const unsigned below = (1u << lane) - 1u;
-
-  for (int i = tid; i < kPatTypes; i += kThreads) {
-    s.tand[i] = ~0ull;
-    s.tor[i] = 0ull;
-    s.csize[i] = 0;
-    s.cfill[i] = 0;
-    s.tclass[i] = -1;
-  }
-  for (int i = tid; i < (1 << kHistTypes); i += kThreads) s.hist[i] = 0;
-  for (int i = tid; i < kWarps * kPatTypes; i += kThreads)
-    (&s.wcnt[0][0])[i] = 0;
-  for (int r = tid; r < nr; r += kThreads) out[r] = -1;
-  if (warp == 0) {
-    // live tasks are the prefix with s_prio > kNeg: search with 32 probes a
-    // round; the answer lies in [lo, hi]
-    int lo = 0, hi = nt;
-    while (hi - lo > 32) {
-      const long long span = hi - lo;
-      const int p = lo + (int)(span * (lane + 1) / 33);
-      const unsigned dead = __ballot_sync(kFull, s_prio[p] <= kNeg);
-      const int nlow = __popc(~dead);  // live probes come first
-      const int plo = __shfl_sync(kFull, p, nlow > 0 ? nlow - 1 : 0);
-      const int phi = __shfl_sync(kFull, p, nlow < 32 ? nlow : 31);
-      if (nlow > 0) lo = plo + 1;
-      if (nlow < 32) hi = phi;
-    }
-    const int p = lo + lane;
-    const unsigned dead = __ballot_sync(kFull, p >= hi || s_prio[p] <= kNeg);
-    if (lane == 0) s.nlive = dead ? lo + __ffs(dead) - 1 : hi;
-  }
-  __syncthreads();
-
-  if (ntypes <= kPatTypes) {
-    // pass 1: per-type AND / OR of the patterns holding it, members per
-    // lowest type (R1's class sizes) and, for T <= 10, per pattern
-    for (int base = warp * 32; base < nr; base += kThreads) {
-      const unsigned long long p =
-          pattern(mask, valid, nr, ntypes, base + lane, vec);
-      unsigned long long present = warp_or64(p);
-      while (present) {
-        const int t = __ffsll((long long)present) - 1;
-        present &= present - 1;
-        const bool has = (p >> t) & 1ull;
-        const unsigned long long a = warp_and64(has ? p : ~0ull);
-        const unsigned long long o = warp_or64(has ? p : 0ull);
-        if (lane == 0) {
-          atomicAnd(&s.tand[t], a);
-          atomicOr(&s.tor[t], o);
-        }
-      }
-      const int low = p ? __ffsll((long long)p) - 1 : -1;
-      const unsigned lpeers = __match_any_sync(kFull, low);
-      if (low >= 0 && (lpeers & below) == 0)
-        atomicAdd(&s.csize[low], __popc(lpeers));
-      if (ntypes <= kHistTypes) {
-        const int key = (int)p;
-        const unsigned ppeers = __match_any_sync(kFull, key);
-        if (key && (ppeers & below) == 0)
-          atomicAdd(&s.hist[key], __popc(ppeers));
-      }
-    }
-  }
-  __syncthreads();
-
-  if (warp == 0) {
-    // the route, the classes and where their member lists start
-    int route = kSweep, nclasses = 0;
-    if (ntypes <= kPatTypes) {
-      bool ok = true;
-      for (int t = lane; t < ntypes; t += 32)
-        if (s.tor[t] && s.tand[t] != s.tor[t]) ok = false;
-      if (__all_sync(kFull, ok)) {
-        route = kPartition;  // class id: the lowest type of its pattern
-        nclasses = ntypes;
-        for (int t = lane; t < ntypes; t += 32)
-          s.tclass[t] = s.tor[t] ? __ffsll((long long)s.tor[t]) - 1 : -1;
-      } else if (ntypes <= kHistTypes) {
-        const int nbins = 1 << ntypes;
-        for (int b0 = 0; b0 < nbins; b0 += 32) {
-          const int b = b0 + lane;
-          const int cnt = (b > 0 && b < nbins) ? s.hist[b] : 0;
-          const unsigned present = __ballot_sync(kFull, cnt > 0);
-          if (cnt > 0) {
-            const int id = nclasses + __popc(present & below);
-            if (id < kLanes) {
-              s.csize[id] = cnt;
-              s.cpat[id] = (unsigned)b;
-            }
-            s.hist[b] = id;  // class id per pattern, in pattern order
-          }
-          nclasses += __popc(present);
-        }
-        if (nclasses <= kLanes) route = kClasses;
-      }
-    }
-    __syncwarp();  // the lanes' csize writes, read by other lanes below
-    if (route != kSweep) {
-      const int v0 = lane < nclasses ? s.csize[lane] : 0;
-      const int v1 = lane + 32 < nclasses ? s.csize[lane + 32] : 0;
-      const int i0 = warp_incl_scan(v0);
-      const int i1 = warp_incl_scan(v1);
-      const int t0 = __shfl_sync(kFull, i0, 31);
-      const int t1 = __shfl_sync(kFull, i1, 31);
-      if (lane < nclasses) s.cstart[lane] = i0 - v0;
-      if (lane + 32 < nclasses) s.cstart[lane + 32] = t0 + i1 - v1;
-      const int nonempty = __popc(__ballot_sync(kFull, v0 > 0)) +
-                           __popc(__ballot_sync(kFull, v1 > 0));
-      if (lane == 0) {
-        s.remaining = nonempty;
-        s.nopen[0] = t0 + t1;  // R2: every member starts open
-      }
-    } else if (lane == 0) {
-      s.nopen[0] = 0;  // R3: counted while the bitmasks are built
-    }
-    if (lane == 0) {
-      s.route = route;
-      s.nclasses = nclasses;
-      out[nr] = route;
-    }
-  }
-  __syncthreads();
-  const int route = s.route;
-  const int nclasses = s.nclasses;
-  const int nlive = s.nlive;
 
   if (route != kSweep) {
     // pass 2: the member lists, each in index order (a stable counting
@@ -545,7 +429,168 @@ greedy_sweep_kernel(const int* __restrict__ s_prio,
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+greedy_sweep_kernel(const int* __restrict__ s_prio,
+                    const long long* __restrict__ order,
+                    const int* __restrict__ task_type,
+                    const unsigned char* __restrict__ mask,
+                    const unsigned char* __restrict__ valid,
+                    int* __restrict__ out, int* scratch, int nt, int nr,
+                    int ntypes, int region_cap, bool vec) {
+  __shared__ Shared s;
+  // the staged tiles, then region_cap words for the route's working set
+  extern __shared__ int dyn[];
+  int* tile_type = dyn;  // [2][kTile]
+  int* tile_order = tile_type + 2 * kTile;
+
+  const int tid = threadIdx.x;
+  const int lane = lane_id();
+  const int warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+
+  for (int i = tid; i < kPatTypes; i += kThreads) {
+    s.tand[i] = ~0ull;
+    s.tor[i] = 0ull;
+    s.csize[i] = 0;
+    s.cfill[i] = 0;
+    s.tclass[i] = -1;
+  }
+  for (int i = tid; i < (1 << kHistTypes); i += kThreads) s.hist[i] = 0;
+  for (int i = tid; i < kWarps * kPatTypes; i += kThreads)
+    (&s.wcnt[0][0])[i] = 0;
+  for (int r = tid; r < nr; r += kThreads) out[r] = -1;
+  if (warp == 0) {
+    // live tasks are the prefix with s_prio > kNeg: search with 32 probes a
+    // round; the answer lies in [lo, hi]
+    int lo = 0, hi = nt;
+    while (hi - lo > 32) {
+      const long long span = hi - lo;
+      const int p = lo + (int)(span * (lane + 1) / 33);
+      const unsigned dead = __ballot_sync(kFull, s_prio[p] <= kNeg);
+      const int nlow = __popc(~dead);  // live probes come first
+      const int plo = __shfl_sync(kFull, p, nlow > 0 ? nlow - 1 : 0);
+      const int phi = __shfl_sync(kFull, p, nlow < 32 ? nlow : 31);
+      if (nlow > 0) lo = plo + 1;
+      if (nlow < 32) hi = phi;
+    }
+    const int p = lo + lane;
+    const unsigned dead = __ballot_sync(kFull, p >= hi || s_prio[p] <= kNeg);
+    if (lane == 0) s.nlive = dead ? lo + __ffs(dead) - 1 : hi;
+  }
+  __syncthreads();
+
+  if (ntypes <= kPatTypes) {
+    // pass 1: per-type AND / OR of the patterns holding it, members per
+    // lowest type (R1's class sizes) and, for T <= 10, per pattern
+    for (int base = warp * 32; base < nr; base += kThreads) {
+      const unsigned long long p =
+          pattern(mask, valid, nr, ntypes, base + lane, vec);
+      unsigned long long present = warp_or64(p);
+      while (present) {
+        const int t = __ffsll((long long)present) - 1;
+        present &= present - 1;
+        const bool has = (p >> t) & 1ull;
+        const unsigned long long a = warp_and64(has ? p : ~0ull);
+        const unsigned long long o = warp_or64(has ? p : 0ull);
+        if (lane == 0) {
+          atomicAnd(&s.tand[t], a);
+          atomicOr(&s.tor[t], o);
+        }
+      }
+      const int low = p ? __ffsll((long long)p) - 1 : -1;
+      const unsigned lpeers = __match_any_sync(kFull, low);
+      if (low >= 0 && (lpeers & below) == 0)
+        atomicAdd(&s.csize[low], __popc(lpeers));
+      if (ntypes <= kHistTypes) {
+        const int key = (int)p;
+        const unsigned ppeers = __match_any_sync(kFull, key);
+        if (key && (ppeers & below) == 0)
+          atomicAdd(&s.hist[key], __popc(ppeers));
+      }
+    }
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // the route, the classes and where their member lists start
+    int route = kSweep, nclasses = 0;
+    if (ntypes <= kPatTypes) {
+      bool ok = true;
+      for (int t = lane; t < ntypes; t += 32)
+        if (s.tor[t] && s.tand[t] != s.tor[t]) ok = false;
+      if (__all_sync(kFull, ok)) {
+        route = kPartition;  // class id: the lowest type of its pattern
+        nclasses = ntypes;
+        for (int t = lane; t < ntypes; t += 32)
+          s.tclass[t] = s.tor[t] ? __ffsll((long long)s.tor[t]) - 1 : -1;
+      } else if (ntypes <= kHistTypes) {
+        const int nbins = 1 << ntypes;
+        for (int b0 = 0; b0 < nbins; b0 += 32) {
+          const int b = b0 + lane;
+          const int cnt = (b > 0 && b < nbins) ? s.hist[b] : 0;
+          const unsigned present = __ballot_sync(kFull, cnt > 0);
+          if (cnt > 0) {
+            const int id = nclasses + __popc(present & below);
+            if (id < kLanes) {
+              s.csize[id] = cnt;
+              s.cpat[id] = (unsigned)b;
+            }
+            s.hist[b] = id;  // class id per pattern, in pattern order
+          }
+          nclasses += __popc(present);
+        }
+        if (nclasses <= kLanes) route = kClasses;
+      }
+    }
+    __syncwarp();  // the lanes' csize writes, read by other lanes below
+    if (route != kSweep) {
+      const int v0 = lane < nclasses ? s.csize[lane] : 0;
+      const int v1 = lane + 32 < nclasses ? s.csize[lane + 32] : 0;
+      const int i0 = warp_incl_scan(v0);
+      const int i1 = warp_incl_scan(v1);
+      const int t0 = __shfl_sync(kFull, i0, 31);
+      const int t1 = __shfl_sync(kFull, i1, 31);
+      if (lane < nclasses) s.cstart[lane] = i0 - v0;
+      if (lane + 32 < nclasses) s.cstart[lane + 32] = t0 + i1 - v1;
+      const int nonempty = __popc(__ballot_sync(kFull, v0 > 0)) +
+                           __popc(__ballot_sync(kFull, v1 > 0));
+      if (lane == 0) {
+        s.remaining = nonempty;
+        s.nopen[0] = t0 + t1;  // R2: every member starts open
+      }
+    } else if (lane == 0) {
+      s.nopen[0] = 0;  // R3: counted while the bitmasks are built
+    }
+    if (lane == 0) {
+      s.route = route;
+      s.nclasses = nclasses;
+      out[nr] = route;
+      atomicAdd(&g_route_launches[route - 1], 1ull);
+    }
+  }
+  __syncthreads();
+  const int route = s.route;
+  const int nclasses = s.nclasses;
+  const int nlive = s.nlive;
+  // two copies of the routes, so that the one whose working set sits in
+  // shared memory addresses it as such and not through generic pointers
+  if (region_words(route, nr, ntypes) <= region_cap)
+    run_route(s, tile_order + 2 * kTile, order, task_type, mask, valid, out,
+              nr, ntypes, vec, tile_type, tile_order, route, nclasses, nlive);
+  else
+    run_route(s, scratch, order, task_type, mask, valid, out, nr, ntypes, vec,
+              tile_type, tile_order, route, nclasses, nlive);
+}
+
 int g_max_dyn = -1;  // dynamic shared memory a launch may use, in bytes
+
+// Words of shared memory a launch gives the route's working set: what the
+// largest route needs, up to what is left beside the tiles.
+long long shared_region_words(int nr, int ntypes) {
+  const long long need = std::max(region_words(kPartition, nr, ntypes),
+                                  region_words(kSweep, nr, ntypes));
+  return std::min(need, g_max_dyn / 4LL - 4LL * kTile);
+}
 
 }  // namespace
 
@@ -568,28 +613,44 @@ int adlb_greedy_sweep_init() {
       g_max_dyn);
 }
 
-// Dynamic shared memory a launch needs, and the most it may have (-1 before
-// adlb_greedy_sweep_init), in bytes.
-long long adlb_greedy_sweep_smem(int nr, int ntypes) {
-  const long long nwords = (nr + 31) / 32;
-  const long long bits = (ntypes + 1) * nwords + ntypes;
-  return 4LL * ((nr > bits ? nr : bits) + 4LL * kTile);
+// Bytes of device scratch a launch at NR x T needs: 0 when every route's
+// working set fits in shared memory, else the largest one's (after
+// adlb_greedy_sweep_init).
+long long adlb_greedy_sweep_scratch_bytes(int nr, int ntypes) {
+  const long long need = std::max(region_words(kPartition, nr, ntypes),
+                                  region_words(kSweep, nr, ntypes));
+  return need > shared_region_words(nr, ntypes) ? 4LL * need : 0LL;
 }
 
-long long adlb_greedy_sweep_max_smem() { return g_max_dyn; }
-
-// Launches the solve on `stream`; returns the CUDA error code of the launch
+// Launches the solve on `stream`; `scratch` holds
+// adlb_greedy_sweep_scratch_bytes(nr, ntypes) bytes of device memory, or is
+// null when that is 0. Returns the CUDA error code of the launch
 // (0 = cudaSuccess). Does not synchronise.
 int adlb_greedy_sweep(const int* s_prio, const long long* order,
                       const int* task_type, const unsigned char* mask,
-                      const unsigned char* valid, int* out, int nt, int nr,
-                      int ntypes, void* stream) {
+                      const unsigned char* valid, int* out, int* scratch,
+                      int nt, int nr, int ntypes, void* stream) {
+  if (scratch == nullptr && adlb_greedy_sweep_scratch_bytes(nr, ntypes) > 0)
+    return (int)cudaErrorInvalidValue;
   const bool vec = ntypes % 16 == 0 && ((uintptr_t)mask & 15) == 0;
-  greedy_sweep_kernel<<<1, kThreads,
-                        (size_t)adlb_greedy_sweep_smem(nr, ntypes),
+  const long long cap = shared_region_words(nr, ntypes);
+  greedy_sweep_kernel<<<1, kThreads, (size_t)(4 * (4LL * kTile + cap)),
                         (cudaStream_t)stream>>>(
-      s_prio, order, task_type, mask, valid, out, nt, nr, ntypes, vec);
+      s_prio, order, task_type, mask, valid, out, scratch, nt, nr, ntypes,
+      (int)cap, vec);
   return (int)cudaGetLastError();
+}
+
+// The kernel's launches per route on the current device so far, into
+// counts[3] (partition, classes, sweep); synchronous.
+int adlb_greedy_sweep_route_counts(unsigned long long* counts) {
+  return (int)cudaMemcpyFromSymbol(counts, g_route_launches,
+                                   sizeof(g_route_launches));
+}
+
+int adlb_greedy_sweep_reset_route_counts() {
+  const unsigned long long zero[3] = {0, 0, 0};
+  return (int)cudaMemcpyToSymbol(g_route_launches, zero, sizeof(zero));
 }
 
 // One asynchronous copy on `stream` between pinned host and device memory

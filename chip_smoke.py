@@ -8,17 +8,21 @@ no result). Phases:
 1. build the greedy-sweep kernel (``adlb_tpu_torch/csrc/greedy_sweep.cu``)
    from the sources in this checkout;
 2. hold the kernel against its plain PyTorch versions and against the numpy
-   twin ``_host_greedy`` on edge cases and at the main path's shapes, with
-   one instance per kernel route at each shape (exact equality: the outputs
-   are integer assignments; the route the kernel reports must be the one
-   ``requester_classes`` names), and time it: the wrapper, the sort alone,
-   the kernel alone, the plain version;
+   twin ``_host_greedy`` on edge cases (among them requester counts whose
+   working set overflows shared memory into the kernel's scratch buffer) and
+   at the main path's shapes, with one instance per kernel route at each
+   shape plus the ``classes`` instance widened to T=11, which the ``sweep``
+   route takes (exact equality: the outputs are integer assignments; the
+   route the kernel reports must be the one ``requester_classes`` names),
+   and time it: the wrapper, the sort alone, the kernel alone, the plain
+   version;
 3. drive the port's main path: a ``run_world`` with the planned balancer on
    the card, 16 servers x (4096 tasks, 512 requesters), so every device
    solve is a 65536 x 8192 instance; every unit must be consumed exactly
-   once, and every device solve must be exactly one kernel launch. Prints
-   the launches per route and the median in-world solve split on the host
-   clock into hand-off, sort + launch enqueue and wait for the result.
+   once, every device solve must be exactly one kernel launch, and every
+   eighth solve is held against ``_host_greedy``. Prints the launches per
+   route and the median in-world solve split on the host clock into
+   hand-off, sort + launch enqueue and wait for the result.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -51,9 +55,28 @@ def card_label() -> str:
         return f"{torch.cuda.get_device_name(0)}, power limit not read"
 
 
-def time_ms(fn, reps: int, warmup: int = 3) -> float:
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median per-call device time with CUDA events, each call on an idle
+    card, after warm-up (the method of the port's first chip_smoke.py)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def back_to_back_ms(fn, reps: int, warmup: int = 3) -> float:
     """Mean device time per call with CUDA events around ``reps`` calls in a
-    row, after warm-up."""
+    row, after warm-up: the host enqueues the next call while the card runs
+    this one, so it reads lower than :func:`time_ms` by the launch gaps."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -98,6 +121,16 @@ def random_instance(rng, nt, nr, t, pad=0.25, prio_hi=1000):
     return tp, tt, rm, rv
 
 
+def widen(arrs, t):
+    """The same instance over t types: the added types have no task and no
+    requester, so the greedy's result is the same, but past T=10 the kernel
+    takes route ``sweep``."""
+    tp, tt, rm, rv = arrs
+    wide = np.zeros((rm.shape[0], t), dtype=bool)
+    wide[:, :rm.shape[1]] = rm
+    return tp, tt, wide, rv
+
+
 def one_type_instance(rng, nt, nr, t):
     tp, tt, _, rv = random_instance(rng, nt, nr, t)
     rm = np.zeros((nr, t), dtype=bool)
@@ -133,20 +166,29 @@ def edge_cases(rng):
     cases.append(("one type T=70 5000x2000",
                   one_type_instance(rng, 5000, 2000, 70)))
     cases.append(("random T=11 5000x2000", random_instance(rng, 5000, 2000, 11)))
+    # past shared memory: 32 servers x 2048 requesters, and 16 x 2048 with
+    # 4 types x 16 jobs (T=64); the working set goes to device memory
+    big = np.random.default_rng(2)
+    cases.append(("random 16384x65536x4",
+                  random_instance(big, 16384, 65536, 4)))
+    cases.append(("bench 16384x65536", bench_instance(big, 16384, 65536)))
+    cases.append(("random T=64 16384x32768",
+                  random_instance(big, 16384, 32768, 64)))
     return cases
 
 
 #: one instance per kernel route at the main path's shapes: bench.py's
 #: generator (one type per requester), random masks at T=4 (pad 0.25, valid
-#: 0.8), random masks at T=64
-ROUTE_CASES = (("partition", 4, lambda rng, nt, nr: bench_instance(rng, nt, nr)),
-               ("classes", 4, lambda rng, nt, nr: random_instance(rng, nt, nr, 4)),
-               ("sweep", 64, lambda rng, nt, nr: random_instance(rng, nt, nr, 64)))
+#: 0.8), random masks at T=64; the ``classes`` instance is also timed on
+#: route ``sweep``, widened to T=11
+ROUTE_CASES = (("partition", lambda rng, nt, nr: bench_instance(rng, nt, nr)),
+               ("classes", lambda rng, nt, nr: random_instance(rng, nt, nr, 4)),
+               ("sweep", lambda rng, nt, nr: random_instance(rng, nt, nr, 64)))
 
 
 def check_kernel(gs, host_greedy, report):
     """Phase 2: exact agreement, routes and times. Returns the kernel's
-    numbers: the main path's route at 65536x8192 and every route's."""
+    numbers at 65536x8192 per case (the main path's is ``partition``)."""
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     err = 0
@@ -188,38 +230,51 @@ def check_kernel(gs, host_greedy, report):
 
     for name, arrs in edge_cases(rng):
         run(name, arrs)
-    by_route = {}
+
+    def timed_case(name, route, arrs, nt, nr):
+        t = arrs[2].shape[1]
+        ins, got, _ = run(f"{name} {nt}x{nr} T={t}", arrs, route)
+        t0 = time.perf_counter()
+        gs.greedy_assign_torch(*ins)
+        torch.cuda.synchronize()
+        plain_once = time.perf_counter() - t0
+        ms = time_ms(lambda: gs.greedy_assign_cuda(*ins), reps=50)
+        ms_b2b = back_to_back_ms(lambda: gs.greedy_assign_cuda(*ins), reps=50)
+        sort_ms = time_ms(lambda: gs.sort_tasks(ins[0]), reps=50)
+        # the kernel alone: launches on the sorted tasks from ready pointers
+        work = gs.Workspace(nt, nr, t, dev)
+        ptrs = [x.data_ptr() for x in ins[1:]]
+        stream = torch.cuda.current_stream().cuda_stream
+        work.run(ins[0], *ptrs, stream)
+        if not torch.equal(work.out[:nr], got):
+            raise AssertionError(f"{name}: kernel differs between launches")
+        kernel_ms = time_ms(lambda: work.launch(*ptrs, stream), reps=50)
+        kernel_b2b = back_to_back_ms(lambda: work.launch(*ptrs, stream),
+                                     reps=200)
+        plain_ms = time_ms(lambda: gs.greedy_assign_torch(*ins),
+                           reps=3 if plain_once < 1 else 1, warmup=0)
+        bnd = bound_ms(nt, nr, t)
+        report(f"phase 2: {name} {nt}x{nr} T={t}: wrapper {ms:.4f} ms "
+               f"(back to back {ms_b2b:.4f}), sort alone {sort_ms:.4f} ms, "
+               f"kernel alone {kernel_ms:.4f} ms (back to back "
+               f"{kernel_b2b:.4f}), plain {plain_ms:.1f} ms, bound "
+               f"{bnd:.6f} ms (bytes), matched {int((got >= 0).sum())}")
+        if nt == 65536:
+            by_case[name.replace(" ", "_")] = {
+                "route": route, "ms": ms, "ms_back_to_back": ms_b2b,
+                "sort_ms": sort_ms, "kernel_ms": kernel_ms,
+                "kernel_ms_back_to_back": kernel_b2b, "plain_ms": plain_ms,
+                "bound_ms": bnd}
+
+    by_case = {}
     for nt, nr in ((4096, 512), (16384, 2048), (65536, 8192)):
-        for route, t, make in ROUTE_CASES:
-            ins, got, _ = run(f"{route} {nt}x{nr} T={t}", make(rng, nt, nr),
-                              route)
-            t0 = time.perf_counter()
-            gs.greedy_assign_torch(*ins)
-            torch.cuda.synchronize()
-            plain_once = time.perf_counter() - t0
-            ms = time_ms(lambda: gs.greedy_assign_cuda(*ins), reps=50)
-            sort_ms = time_ms(lambda: gs.sort_tasks(ins[0]), reps=50)
-            # the kernel alone: launches from ready pointers, so the host
-            # keeps ahead of the card
-            s_prio, order = gs.sort_tasks(ins[0])
-            out = torch.empty((nr + 1,), dtype=torch.int32, device=dev)
-            gs.launch(s_prio, order, *ins[1:], out)
-            args = [x.data_ptr() for x in (s_prio, order, *ins[1:], out)]
-            stream = torch.cuda.current_stream().cuda_stream
-            kernel_ms = time_ms(
-                lambda: gs.launch_raw(*args, nt, nr, t, stream), reps=200)
-            plain_ms = time_ms(lambda: gs.greedy_assign_torch(*ins),
-                               reps=3 if plain_once < 1 else 1, warmup=0)
-            bnd = bound_ms(nt, nr, t)
-            report(f"phase 2: {route} {nt}x{nr} T={t}: wrapper {ms:.4f} ms "
-                   f"(sort alone {sort_ms:.4f} ms, kernel alone "
-                   f"{kernel_ms:.4f} ms), plain {plain_ms:.1f} ms, bound "
-                   f"{bnd:.6f} ms (bytes), matched {int((got >= 0).sum())}")
-            if nt == 65536:
-                by_route[route] = {"ms": ms, "sort_ms": sort_ms,
-                                   "kernel_ms": kernel_ms,
-                                   "plain_ms": plain_ms, "bound_ms": bnd}
-    return by_route, err
+        for route, make in ROUTE_CASES:
+            arrs = make(rng, nt, nr)
+            timed_case(route, route, arrs, nt, nr)
+            if route == "classes":
+                timed_case("classes as sweep", "sweep", widen(arrs, 11),
+                           nt, nr)
+    return by_case, err
 
 
 def run_main_path(device="cuda", nunits=10_000, napps=64, nservers=16,
@@ -305,12 +360,13 @@ def main() -> int:
         if "ptxas" in ln:
             report(f"phase 1: {ln.strip()}")
 
-    by_route, max_err = check_kernel(gs, solve._host_greedy, report)
+    by_case, max_err = check_kernel(gs, solve._host_greedy, report)
 
     # host-clock time of each device solve in the world (numpy in, numpy
     # out) and its split: hand-off (numpy copies into the pinned buffer and
-    # the H2D enqueue), sort + launch + D2H enqueue, wait for the result
-    solve_s, splits = [], []
+    # the H2D enqueue), sort + launch + D2H enqueue, wait for the result;
+    # every eighth solve's inputs and result are kept for a check afterwards
+    solve_s, splits, sampled = [], [], []
     untimed = solve.AssignmentSolver._device_solve
 
     def timed(self, *arrays):
@@ -318,6 +374,8 @@ def main() -> int:
         out = untimed(self, *arrays)
         solve_s.append(time.perf_counter() - t)
         splits.append(self.handoff.split)
+        if len(solve_s) % 8 == 1:
+            sampled.append(([np.array(a) for a in arrays], out.copy()))
         return out
 
     def split_text(rows) -> str:
@@ -326,8 +384,7 @@ def main() -> int:
                 f"{med[1]:.3f} ms, wait for the result {med[2]:.3f} ms")
 
     solve.AssignmentSolver._device_solve = timed
-    gs.launches = 0
-    gs.route_launches.update(dict.fromkeys(gs.ROUTES, 0))
+    gs.reset_counts()
     solve.solve_counts.update(device=0, host=0)
     nunits = 10_000
     try:
@@ -335,7 +392,7 @@ def main() -> int:
     finally:
         solve.AssignmentSolver._device_solve = untimed
     launches = gs.launches
-    route_launches = dict(gs.route_launches)
+    route_launches = gs.route_launches()
     counts = dict(solve.solve_counts)
     report(f"phase 3: world 64 apps x 16 servers, {nunits} units consumed "
            f"once in {wall:.3f} s ({nunits / wall:.1f} units/s); device "
@@ -348,17 +405,27 @@ def main() -> int:
                f"{1e3 * statistics.median(solve_s):.3f} ms, max "
                f"{1e3 * max(solve_s):.3f} ms each; median split: "
                f"{split_text(splits)}")
+    wrong = sum(not np.array_equal(out, solve._host_greedy(*arrays))
+                for arrays, out in sampled)
+    report(f"phase 3: {len(sampled)} of the world's device solves held "
+           f"against _host_greedy: {wrong} differ")
+    if wrong:
+        raise AssertionError(f"{wrong} world solves differ from _host_greedy")
     # the same solve (numpy in, numpy out) with no world running: the
     # yardstick for what the world's solves spend waiting on the host
     alone = solve.AssignmentSolver(types=(1, 2, 3, 4), max_tasks=4096,
                                    max_requesters=512, host_threshold_reqs=0)
     arrs = bench_instance(np.random.default_rng(1), 65536, 8192)
+    want = solve._host_greedy(*arrs)
     alone_s, alone_splits = [], []
     for _ in range(21):
         t = time.perf_counter()
-        alone._device_solve(*arrs)
+        got = alone._device_solve(*arrs)
         alone_s.append(time.perf_counter() - t)
         alone_splits.append(alone.handoff.split)
+        if not np.array_equal(got, want):
+            raise AssertionError("a device solve with no world running "
+                                 "differs from _host_greedy")
     report(f"phase 3: the same 65536x8192 device solve with no world "
            f"running: median {1e3 * statistics.median(alone_s[1:]):.3f} ms "
            f"on the host clock; median split: {split_text(alone_splits[1:])}")
@@ -376,8 +443,9 @@ def main() -> int:
         raise AssertionError(f"JAX or the JAX package was imported: {leaked}")
 
     # the main path's route (the world's masks partition the types) at the
-    # main path's shape; every route's numbers ride along
-    main = by_route["partition"]
+    # main path's shape; every case's numbers ride along. "ms" is the median
+    # of per-call CUDA-event windows, as in the port's first chip_smoke.py
+    main = by_case["partition"]
     print(json.dumps({"kernels": [{
         "name": "greedy_sweep",
         "route": "cuda",
@@ -386,12 +454,13 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max_err,
         "ms": main["ms"],
+        "ms_back_to_back": main["ms_back_to_back"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
         "launches_by_route": route_launches,
-        "by_route_65536x8192": by_route,
+        "by_case_65536x8192": by_case,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

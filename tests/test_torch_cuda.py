@@ -1,6 +1,8 @@
 """Card-only tests of the port's CUDA kernel (the kernel has no CPU mode):
 every route at the main path's shape, the route the kernel reports against
-``requester_classes``, and one launch per device solve.
+``requester_classes``, one launch per device solve, and requester counts
+whose working set does not fit in shared memory (the kernel's scratch
+buffer in device memory).
 
 They skip without a CUDA device. This file imports neither JAX nor the
 JAX package, so it also runs where JAX is not installed:
@@ -91,14 +93,55 @@ def test_solver_device_solve_is_one_launch(card):
     rng = np.random.default_rng(19)
     for route in ("partition", "classes", "partition"):
         arrs = ROUTE_CASES[route](rng)
-        before, routes = greedy_sweep.launches, dict(greedy_sweep.route_launches)
+        before, routes = greedy_sweep.launches, greedy_sweep.route_launches()
         got = solver._device_solve(*arrs)
         assert greedy_sweep.launches == before + 1
-        assert greedy_sweep.route_launches[route] == routes[route] + 1
+        assert greedy_sweep.route_launches()[route] == routes[route] + 1
         np.testing.assert_array_equal(got, _host_greedy(*arrs))
     handoff = solver.handoff
     solver._device_solve(*ROUTE_CASES["partition"](rng))
     assert solver.handoff is handoff
+
+
+#: (tasks, requesters, types, masks) past what shared memory holds: 32
+#: servers x 2048 requesters, and 16 x 2048 with 4 types x 16 jobs (T=64)
+LARGE = {"classes_nr65536": (16384, 65536, 4, "random"),
+         "partition_nr65536": (16384, 65536, 4, "one_type"),
+         "sweep_t64_nr32768": (16384, 32768, 64, "random"),
+         "sweep_t11_nr65536": (16384, 65536, 11, "random")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LARGE))
+def test_kernel_past_shared_memory(card, case):
+    nt, nr, t, masks = LARGE[case]
+    rng = np.random.default_rng(nr + t)
+    arrs = (_random_instance(rng, nt, nr, t) if masks == "random"
+            else _bench_instance(rng, nt, nr, t))
+    route = _route(arrs)
+    assert route == case.split("_")[0]
+    ins = [torch.from_numpy(a).to(card) for a in arrs]
+    got, code = greedy_sweep.solve_cuda(*ins)
+    torch.cuda.synchronize()
+    assert greedy_sweep.ROUTES[int(code) - 1] == route
+    np.testing.assert_array_equal(got.cpu().numpy(), _host_greedy(*arrs))
+    assert greedy_sweep.Workspace(nt, nr, t, card).scratch is not None
+
+
+@pytest.mark.cuda
+def test_solver_at_32_servers_x_2048_requesters(card):
+    """The hand-off at NR = 65,536 (scratch in device memory) against the
+    numpy twin, one launch per solve."""
+    solver = AssignmentSolver(types=(1, 2, 3, 4), max_tasks=512,
+                              max_requesters=2048, host_threshold_reqs=0)
+    rng = np.random.default_rng(23)
+    for make in (_random_instance, _bench_instance):
+        arrs = make(rng, 32 * 512, 32 * 2048, 4)
+        before = greedy_sweep.launches
+        got = solver._device_solve(*arrs)
+        assert greedy_sweep.launches == before + 1
+        np.testing.assert_array_equal(got, _host_greedy(*arrs))
+    assert solver.handoff.work.scratch is not None
 
 
 @pytest.mark.cuda

@@ -188,10 +188,49 @@ def test_class_routes_match_host_on_many_random_instances(route):
                                       err_msg=f"trial {trial}")
 
 
-def test_count_route_names_the_kernel_codes():
-    before = dict(greedy_sweep.route_launches)
-    for code, name in enumerate(greedy_sweep.ROUTES, start=1):
-        assert greedy_sweep.count_route(code) == name
-    assert {k: v - before[k] for k, v in
-            greedy_sweep.route_launches.items()} == dict.fromkeys(
-                greedy_sweep.ROUTES, 1)
+def test_c3_reserve_pattern_takes_the_classes_route(monkeypatch):
+    """The JAX package's c3 workload (after the reference's examples/c3.c)
+    run in a port world: its ranks reserve overlapping type lists
+    ([A, A_ANSWER], [C, C_ANSWER], any type, the master's never-put type),
+    so a type lies in more than one class and the device solves take the
+    kernel's "classes" route, where the plain class chain must equal the
+    numpy twin."""
+    from adlb_tpu.workloads import c3
+
+    import adlb_tpu_torch
+    from adlb_tpu_torch.balancer import solve as tsolve
+    from adlb_tpu_torch.runtime.world import Config
+
+    seen = []
+    device_solve = tsolve.AssignmentSolver._device_solve
+
+    def kept(self, *arrays):
+        seen.append([np.array(a) for a in arrays])
+        return device_solve(self, *arrays)
+
+    monkeypatch.setattr(tsolve.AssignmentSolver, "_device_solve", kept)
+    monkeypatch.setattr(c3, "run_world", adlb_tpu_torch.run_world)
+    res = c3.run(num_app_ranks=6, nservers=2, cfg=Config(
+        balancer="tpu", device="cpu", solver_host_threshold=0,
+        exhaust_check_interval=0.25), timeout=120)
+    assert res.ok, res
+    routes = [greedy_sweep.requester_classes(torch.from_numpy(a[2]),
+                                             torch.from_numpy(a[3])).route
+              for a in seen]
+    assert "classes" in routes, routes
+    for arrs, route in zip(seen, routes):
+        if route == "classes":
+            np.testing.assert_array_equal(
+                _plain(greedy_sweep.greedy_assign_classes_torch, arrs),
+                _host_greedy(*arrs))
+
+
+def test_counts_before_the_kernel_loads():
+    """Without the kernel library (no card) the route tally reads zero and
+    reset_counts only zeroes the host-side launch count."""
+    assert greedy_sweep._lib is None
+    greedy_sweep.launches = 3
+    greedy_sweep.reset_counts()
+    assert greedy_sweep.launches == 0
+    assert greedy_sweep.route_launches() == dict.fromkeys(
+        greedy_sweep.ROUTES, 0)
