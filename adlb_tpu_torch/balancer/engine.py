@@ -33,6 +33,8 @@ import collections
 import time
 from typing import Optional
 
+import torch
+
 from adlb_tpu_torch.balancer.jobdim import req_job, task_job
 
 # Plan-age samples: for every round that produced output, the age of the
@@ -83,6 +85,7 @@ class PlanEngine:
         job_weights: Optional[dict] = None,
         metrics=None,
         device: str = "cuda",
+        nshards: Optional[int] = None,
     ) -> None:
         from adlb_tpu_torch.balancer.solve import AssignmentSolver
 
@@ -105,24 +108,49 @@ class PlanEngine:
         self._obs_resync: dict[str, int] = {}
         self._obs_resweep: dict[str, int] = {}
 
+        self.solver = None
         if use_mesh:
-            # the sharded planner (balancer/distributed.py in the JAX
-            # package) is a later slice of the port; fail loudly instead
-            # of degrading to the single-device solver
-            raise NotImplementedError("sharded planner not yet ported")
-        kw = {}
-        if host_threshold_reqs is not None:
-            kw["host_threshold_reqs"] = host_threshold_reqs
-        self.solver = AssignmentSolver(
-            types=tuple(types),
-            max_tasks=max_tasks,
-            max_requesters=max_requesters,
-            backend=backend,
-            max_jobs=self.max_jobs,
-            job_weights=self._job_weights,
-            device=device,
-            **kw,
-        )
+            # the sharded planner (balancer/distributed.py): the task table
+            # cut into one shard per visible device (nshards=None) or into
+            # nshards logical shards; one shard plans on the single-device
+            # solver. A construction failure propagates — degrading to the
+            # single-device solver would hide it
+            if nshards is None:
+                nshards = (torch.cuda.device_count()
+                           if torch.device(device).type == "cuda" else 1)
+            if nshards > 1:
+                from adlb_tpu_torch.balancer.distributed import (
+                    DistributedAssignmentSolver,
+                )
+
+                sps = 1
+                if nservers is not None and nservers > nshards:
+                    sps = -(-nservers // nshards)
+                self.solver = DistributedAssignmentSolver(
+                    types=tuple(types),
+                    max_tasks_per_server=max_tasks,
+                    max_requesters=max_requesters,
+                    nshards=nshards,
+                    servers_per_shard=sps,
+                    auction=auction,
+                    max_jobs=self.max_jobs,
+                    job_weights=self._job_weights,
+                    device=device,
+                )
+        if self.solver is None:
+            kw = {}
+            if host_threshold_reqs is not None:
+                kw["host_threshold_reqs"] = host_threshold_reqs
+            self.solver = AssignmentSolver(
+                types=tuple(types),
+                max_tasks=max_tasks,
+                max_requesters=max_requesters,
+                backend=backend,
+                max_jobs=self.max_jobs,
+                job_weights=self._job_weights,
+                device=device,
+                **kw,
+            )
         self.max_malloc_per_server = max_malloc_per_server
         # per-instance overrides of the pump constants (Config knobs)
         if lookahead is not None:

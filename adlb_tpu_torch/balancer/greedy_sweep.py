@@ -33,22 +33,17 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import List, NamedTuple
 
 import torch
 
+from adlb_tpu_torch.balancer import cuda_build
+
 _NEG = -(2**31) + 1  # padding priority, as balancer/solve.py
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "greedy_sweep.cu"
-BUILD_DIR = _PKG / "_build"
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "greedy_sweep.cu"
 
 #: the kernel's routes; the kernel writes route code i + 1 for ROUTES[i]
 ROUTES = ("partition", "classes", "sweep")
@@ -62,14 +57,6 @@ _lib_path = None
 _lib_lock = threading.Lock()
 #: the compiler's output (-Xptxas -v) of the build this process loaded
 build_log = ""
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the greedy-sweep kernel cannot "
-                           "be built (CUDA toolkit missing)")
-    return nvcc
 
 
 def _raise_on(err: int, what: str, lib=None) -> None:
@@ -86,25 +73,10 @@ def build() -> Path:
     if _lib is not None:
         return _lib_path
     with _lib_lock:
-        src = SOURCE.read_bytes()
-        out = BUILD_DIR / f"greedy_sweep-{hashlib.sha1(src).hexdigest()[:12]}.so"
         if _lib is not None:
-            return out
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp, str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-                    f"{build_log}")
-            os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+            return _lib_path
+        out = cuda_build.build_all([SOURCE])[0]
+        build_log = cuda_build.logs.get(out, "")
         # PyDLL keeps the interpreter lock across the microsecond-long
         # launch call instead of giving it up and winning it back
         lib = ctypes.PyDLL(str(out))

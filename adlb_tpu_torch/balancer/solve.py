@@ -42,6 +42,29 @@ _I32MAX = 2**31 - 1
 solve_counts = {"device": 0, "host": 0}
 
 
+def _pack2(primary, secondary):
+    """One int64 key per pair of int32 tensors, ordered as (primary,
+    secondary): every int32 pair fits."""
+    return primary.long() * (1 << 32) + (secondary.long() + (1 << 31))
+
+
+def _stable_argsort2(primary, secondary):
+    """argsort along the last dim by (primary asc, secondary asc, index
+    asc) for int32 tensors: one stable sort of a packed int64 key. The
+    sharded planner's merge (balancer/distributed.py) uses it."""
+    return torch.sort(_pack2(primary, secondary), dim=-1, stable=True).indices
+
+
+def _stable_argsort3(primary, secondary, tertiary):
+    """argsort along the last dim by (primary asc, secondary asc, tertiary
+    asc, index asc) for int32 tensors: a stable sort of the packed
+    (secondary, tertiary) key, then a stable sort by primary — two sorts
+    where the JAX package composes three."""
+    o = _stable_argsort2(secondary, tertiary)
+    p = torch.sort(primary.gather(-1, o), dim=-1, stable=True).indices
+    return o.gather(-1, p)
+
+
 def check_device(device: str) -> torch.device:
     """The torch device a solver runs on: "cuda" (the default) needs a
     card and raises without one — the port never carries on on the CPU

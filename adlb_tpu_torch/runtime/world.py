@@ -286,16 +286,17 @@ class Config:
     # default. Set very high when the balancer host has no local
     # accelerator (e.g. a CPU-only sidecar).
     solver_host_threshold: "Optional[int]" = None
-    # "auto" = when more than one accelerator device is visible, shard the
-    # balancer's task table over a device mesh (one shard per device,
-    # balancer/distributed.py — not ported yet); "off" = single-device solve
+    # "auto" = when more than one device is visible, cut the balancer's
+    # task table into one shard per device (balancer/distributed.py); on
+    # one card (or device="cpu") the single-device solver plans, as the
+    # JAX package does on one chip; "off" = single-device solve
     balancer_mesh: str = "off"
     # auction tier of the sharded solver (balancer/distributed.py):
-    # "device" runs merge + auction rounds + commit threshold as one
-    # jitted shard_map program (no per-round host merge of the gather);
-    # "host" is the retained reference twin the device tier is
-    # fuzz-proven exactly equal to. Only consulted when the mesh
-    # solver is active (balancer_mesh="auto" on a multi-device host)
+    # "device" runs candidates + merge + auction rounds on the device, the
+    # rounds as one launch of the auction kernel (no per-round host
+    # merge); "host" is the retained reference twin the device tier is
+    # fuzz-proven exactly equal to. Only consulted when the sharded
+    # solver is active (balancer_mesh="auto" with more than one device)
     balancer_auction: str = "device"
     # host tier of the plan engine (balancer/ledger.py): "array" keeps
     # parked requesters / snapshot tasks resident in numpy columns so
@@ -797,8 +798,6 @@ class Config:
         """Features whose modules are later slices of the port fail here,
         at validation, instead of deep inside a running world."""
         unported = {
-            "balancer_mesh='auto' (sharded planner)":
-                self.balancer_mesh == "auto",
             "native_queues='on' (native plane)": self.native_queues == "on",
             "server_impl='native' (native plane)":
                 self.server_impl == "native",

@@ -5,8 +5,10 @@
 Needs a CUDA device and ``nvcc`` (it exits non-zero without them, printing
 no result). Phases:
 
-1. build the greedy-sweep kernel (``adlb_tpu_torch/csrc/greedy_sweep.cu``)
-   from the sources in this checkout;
+1. build the two kernels, the greedy sweep
+   (``adlb_tpu_torch/csrc/greedy_sweep.cu``) and the sharded planner's
+   auction (``adlb_tpu_torch/csrc/auction.cu``), from the sources in this
+   checkout, one ``nvcc`` per source, started together;
 2. hold the kernel against its plain PyTorch versions and against the numpy
    twin ``_host_greedy`` on edge cases (among them requester counts whose
    working set overflows shared memory into the kernel's scratch buffer) and
@@ -22,7 +24,22 @@ no result). Phases:
    once, every device solve must be exactly one kernel launch, and every
    eighth solve is held against ``_host_greedy``. Prints the launches per
    route and the median in-world solve split on the host clock into
-   hand-off, sort + launch enqueue and wait for the result.
+   hand-off, sort + launch enqueue and wait for the result;
+4. hold the auction kernel against its plain version ``auction_torch`` and
+   the numpy twin ``_host_auction`` on fuzzed instances (T 1 to 64, m 1 to
+   40, 1 to 8 shards, C from ``_slot_sizes``; three shapes whose working
+   set goes to the kernel's device scratch), exact equality;
+5. drive the sharded planner: ``plan_bench``'s 1k and 10k rows (10,000
+   servers x 100 parked requesters = 1M, 160,000 task slots, 8 shards, 16
+   rounds) on the card, every round's device-tier pair list equal to the
+   host tier's from the same snapshots, one auction launch per device plan;
+   a few ``PlanEngine(use_mesh=True, nshards=8)`` rounds through the
+   ledger's view path, both tiers equal; then, on the 10k row's final
+   state, the auction kernel alone, the whole device plan (candidates,
+   merge, auction) and its split, and the plain version, timed;
+6. run the known-answer workloads (nq, sudoku, gfmc, tsp, hotspot, model)
+   in planned-balancer worlds on the card; each must return its answer,
+   and every device solve must be one greedy-sweep launch.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -340,6 +357,354 @@ def run_main_path(device="cuda", nunits=10_000, napps=64, nservers=16,
     return wall
 
 
+def auction_instance(rng, T, m, nshards, rounds, sl=4, K=8, R=4, slots=None,
+                     one_type=False, device="cuda"):
+    """A fuzzed auction instance: a random task table cut into shards,
+    its per-shard candidates merged (the port's ``_shard_candidates`` and
+    ``_merge_shard_major``), random requester masks (or one random type per
+    requester, as plan_bench parks them) and their slot tables. Returns
+    (numpy twin inputs, tensors on ``device``)."""
+    from adlb_tpu_torch.balancer import distributed as dist
+
+    S = nshards * sl
+    tp = rng.integers(-50, 50, (S, K)).astype(np.int32)
+    tt = rng.integers(0, T, (S, K)).astype(np.int32)
+    tp[rng.random((S, K)) < 0.2] = NEG
+    rk = rng.permutation(S).astype(np.int32)
+    NR = S * R
+    C, D = dist._slot_sizes(slots, m, rounds, NR)
+    cp, cg = dist._shard_candidates(
+        torch.from_numpy(tp).view(nshards, sl, K),
+        torch.from_numpy(tt).view(nshards, sl, K),
+        torch.from_numpy(rk).view(nshards, sl), T, D)
+    gp, gg = dist._merge_shard_major(cp.numpy(), cg.numpy())
+    rv = rng.random(NR) < 0.9
+    rm = rng.random((NR, T)) < 0.4
+    if one_type:
+        rm = np.arange(T)[None, :] == rng.integers(0, T, NR)[:, None]
+    rw, lens = dist._reqwin(rm, rv, T, C)
+    rwc, open0 = dist._compact_reqwin(rw)
+    ins = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+           for a in (gp, gg, rwc, lens, open0)]
+    return (gp, gg, rw, lens, rv), ins
+
+
+def auction_cases():
+    """(name, T, m, nshards, rounds, servers per shard, slots per type, one
+    type per requester): every T of {1, 4, 8, 24} with every m of {1, 8,
+    32, 40} over 1, 2 and 8 shards, random masks and one type per
+    requester; the 10k row's (T, m, C) = (8, 32, 512) at 8 shards;
+    multi-job T' = 3 jobs x 8 types at C = 512; and three shapes past
+    shared memory."""
+    cases = []
+    for i, (T, m) in enumerate((T, m) for T in (1, 4, 8, 24)
+                               for m in (1, 8, 32, 40)):
+        ns = (1, 2, 8)[i % 3]
+        for one in (False, True):
+            cases.append((f"T={T} m={m} nshards={ns}"
+                          f"{' one type' if one else ''}", T, m, ns, 16, 4,
+                          None, one))
+    cases += [("10k-row shape T=8 m=32 C=512", 8, 32, 8, 16, 32, None, False),
+              ("10k-row shape one type", 8, 32, 8, 16, 32, None, True),
+              ("multi-job T'=24 C=512", 24, 32, 8, 16, 32, 512, True),
+              ("past shared memory T=24 C=1024", 24, 32, 8, 32, 64, 1024,
+               True),
+              ("past shared memory T=32 C=1024", 32, 8, 8, 4, 64, 1024,
+               False),
+              ("past shared memory T=64 C=512 m=40", 64, 40, 2, 8, 256, 512,
+               True)]
+    return cases
+
+
+def check_auction(auction, report):
+    """Phase 4: the auction kernel against its plain version and the numpy
+    twin on every case. Returns the largest absolute difference seen."""
+    from adlb_tpu_torch.balancer import distributed as dist
+
+    err = 0
+    for name, T, m, ns, rounds, sl, slots, one in auction_cases():
+        rng = np.random.default_rng(T * 1000 + m * 10 + ns)
+        (gp, gg, rw, lens, rv), ins = auction_instance(
+            rng, T, m, ns, rounds, sl=sl, slots=slots, one_type=one)
+        C = rw.shape[1]
+        work = auction.Workspace(T, C, m, ins[0].device)
+        got = work.launch(*ins, rounds).clone()
+        torch.cuda.synchronize()
+        plain = auction.auction_torch(*ins, rounds, m)
+        want = dist._host_auction(gp, gg, rw, lens, rv.copy(), rounds, m)
+        err = max(err, int((got.long() - plain.long()).abs().max()))
+        if not (torch.equal(got, plain)
+                and np.array_equal(got.cpu().numpy()[:, :C], want)):
+            raise AssertionError(f"auction kernel disagrees on case {name}")
+        report(f"phase 4: {name} C={C} L={gp.shape[1]} rounds={rounds}: "
+               f"kernel == plain == host_auction, {int((want >= 0).sum())} "
+               f"commits in {int(work.rounds_run)} rounds, working set in "
+               f"{'device scratch' if work.scratch is not None else 'shared memory'}")
+    return err
+
+
+def auction_bound_ms(auction, gp, gg, rwc, lens, open0, rounds_run, m):
+    """Least time for the bytes this run's auction needs, over the card's
+    memory rate. Heads and closed slots only grow, so the rounds read each
+    type's list up to its last round's head slice (m + 1 entries past the
+    head, cut at the first padding entry) and scan its slot table up to
+    that round's m-th open slot. The plain version run for one round fewer
+    gives that round's heads and open requesters. Counted: each prio read
+    and each live gid read, each scanned slot's requester id and open flag,
+    the lengths, and assigned [T, C + 1] and the round count written once.
+    Its operations (a few dozen per (type, rank) entry per round) take far
+    less."""
+    T, L = gp.shape
+    C = rwc.shape[1]
+    before = auction.auction_torch(gp, gg, rwc, lens, open0,
+                                   max(rounds_run - 1, 0), m)[:, :C]
+    head = (before >= 0).sum(dim=1)
+    nlive = (gp > NEG).sum(dim=1)
+    reach = head + m + 1
+    n_prio = torch.minimum(reach, torch.clamp(nlive + 1, max=L))
+    n_gid = torch.minimum(reach, nlive)
+    open_last = open0.clone()
+    open_last[rwc[before >= 0].long()] = False
+    cols = torch.arange(C, device=rwc.device)
+    slot_open = (cols[None, :] < lens[:, None]) & open_last[rwc.long()]
+    mth = slot_open & (torch.cumsum(slot_open, dim=1) == m)
+    scanned = torch.where(mth.any(dim=1), mth.int().argmax(dim=1) + 1, lens)
+    nbytes = (4 * int(n_prio.sum() + n_gid.sum()) + 5 * int(scanned.sum())
+              + 4 * T + 4 * (T * (C + 1) + 1))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def time_device_plan(solver, auction, report):
+    """On a solver's resident state: the auction kernel alone, the whole
+    device plan on the card (candidates, merge, launch) and its split, the
+    plain version on the same inputs, and one ``_device_plan`` (with its
+    D2H) on the host clock. The kernel's result must equal the plain
+    version's and the numpy twin's."""
+    from adlb_tpu_torch.balancer import distributed as dist
+
+    T, C, D, m = solver.T, solver.C, solver.D, solver.m
+    blocks = solver._dev_blocks
+    cp, cg = dist._shard_candidates(*blocks, T, D)
+    gp, gg = dist._merge_candidates(cp, cg)
+    rwc, lens, open0 = solver._dev_req
+    work = solver._work
+    got = work.launch(gp, gg, rwc, lens, open0, solver.rounds).clone()
+    rounds_run = int(work.rounds_run)
+    plain = auction.auction_torch(gp, gg, rwc, lens, open0, solver.rounds, m)
+    req_open = solver._req_valid.copy()
+    want = dist._host_auction(gp.cpu().numpy(), gg.cpu().numpy(), solver._rw,
+                              solver._lens, req_open, solver.rounds, m)
+    if not (torch.equal(got, plain)
+            and np.array_equal(got.cpu().numpy()[:, :C], want)):
+        raise AssertionError("auction kernel disagrees at the 10k row")
+    # the candidate step's batched stable sorts on the card against the
+    # same torch ops on the CPU (both tiers take their candidates from it)
+    on_cpu = dist._shard_candidates(*(b.cpu() for b in blocks), T, D)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip((cp, cg), on_cpu)):
+        raise AssertionError("candidates on the card differ from the CPU's "
+                             "at the 10k row")
+
+    def plan_on_card():
+        a, b = dist._shard_candidates(*blocks, T, D)
+        p, g = dist._merge_candidates(a, b)
+        work.launch(p, g, rwc, lens, open0, solver.rounds)
+
+    out = {
+        "ms": time_ms(lambda: work.launch(gp, gg, rwc, lens, open0,
+                                          solver.rounds), reps=50),
+        "ms_back_to_back": back_to_back_ms(
+            lambda: work.launch(gp, gg, rwc, lens, open0, solver.rounds),
+            reps=200),
+        "device_plan_ms": time_ms(plan_on_card, reps=50),
+        "device_plan_ms_back_to_back": back_to_back_ms(plan_on_card, reps=50),
+        "candidates_ms": time_ms(lambda: dist._shard_candidates(*blocks, T, D),
+                                 reps=50),
+        "merge_ms": time_ms(lambda: dist._merge_candidates(cp, cg), reps=50),
+        "plain_ms": time_ms(lambda: auction.auction_torch(
+            gp, gg, rwc, lens, open0, solver.rounds, m), reps=3, warmup=1),
+        "bound_ms": auction_bound_ms(auction, gp, gg, rwc, lens, open0,
+                                     rounds_run, m),
+        "rounds_run": rounds_run,
+        "commits": int((want >= 0).sum()),
+        "shape": {"T": T, "L": int(gp.shape[1]), "C": C, "m": m,
+                  "nshards": solver.nshards, "S": solver.S, "K": solver.K},
+    }
+    host_plan = []
+    for _ in range(11):
+        t0 = time.perf_counter()
+        solver._device_plan()
+        host_plan.append(time.perf_counter() - t0)
+    out["device_plan_host_clock_ms"] = 1e3 * statistics.median(host_plan[1:])
+    report(f"phase 5: 10k row, T={T} L={gp.shape[1]} C={C} m={m}: auction "
+           f"kernel alone {out['ms']:.4f} ms per call (back to back "
+           f"{out['ms_back_to_back']:.4f}), {rounds_run} rounds run, "
+           f"{out['commits']} commits; whole device plan "
+           f"{out['device_plan_ms']:.4f} ms per call (back to back "
+           f"{out['device_plan_ms_back_to_back']:.4f}): candidates "
+           f"{out['candidates_ms']:.4f} ms, merge {out['merge_ms']:.4f} ms; "
+           f"_device_plan with its D2H {out['device_plan_host_clock_ms']:.3f} "
+           f"ms on the host clock; plain version {out['plain_ms']:.3f} ms; "
+           f"bound {out['bound_ms']:.6f} ms (bytes); candidates on the "
+           f"card == on the CPU")
+    return out
+
+
+def run_sharded_planner(auction, report, reps=40, device="cuda",
+                        scales=None):
+    """Phase 5: plan_bench's 1k and 10k rows on the card at plan_bench's own
+    40 rounds, both tiers from the same snapshots every round, then
+    PlanEngine rounds through the view path (``device``, ``reps`` and
+    ``scales`` only shrink it for a rehearsal on the CPU, where nothing
+    launches). Returns (auction launches, device plans, the last row's
+    solver, plan_bench's result)."""
+    from adlb_tpu_torch.balancer import plan_bench
+    from adlb_tpu_torch.balancer.distributed import (
+        DistributedAssignmentSolver)
+    from adlb_tpu_torch.balancer.engine import PlanEngine
+
+    kept = {}
+    plans = []
+
+    def on_row(solver, row):
+        plans.append(solver.solve_count)
+        kept[row["servers"]] = solver
+        report(f"phase 5: plan_bench {row['servers']} servers x {row['R']} "
+               f"parked ({row['parked_reqs']} requesters, "
+               f"{row['servers'] * row['K']} task slots), 8 shards: plan "
+               f"round p50 {row['plan_round_p50_ms']:.3f} ms, p90 "
+               f"{row['plan_round_p90_ms']:.3f} ms, p99 "
+               f"{row['plan_round_p99_ms']:.3f} ms, max "
+               f"{row['plan_round_max_ms']:.3f} ms (median split: ingest "
+               f"{row['ingest_p50_ms']:.3f} ms, solve {row['solve_p50_ms']:.3f}"
+               f" ms, extract {row['extract_p50_ms']:.3f} ms); pairs per round "
+               f"{row['pairs_per_round_p50']} (p50), {row['pairs_total']} in "
+               f"all; cold ingest {row['cold_ingest_ms']:.1f} ms, first plan "
+               f"{row['first_plan_ms']:.1f} ms, warm sweep "
+               f"{row['device_sweep_ms']:.2f} ms; host tier p50 "
+               f"{row['host_tier_p50_ms']:.3f} ms, p99 "
+               f"{row['host_tier_p99_ms']:.3f} ms; device tier == host tier "
+               f"on all {row['rounds_equal_to_host_tier']} rounds")
+
+    auction.launches = 0
+    scales = scales or [plan_bench.SCALES[2], plan_bench.SCALES[3]]
+    out = plan_bench.run_sweep(scales=scales, reps=reps, nshards=8,
+                               device=device, check_host=True, on_row=on_row)
+    launches = auction.launches
+    # a few engine rounds: the array ledger hands the solver its view
+    engines = [PlanEngine(types=plan_bench.TYPES, max_tasks=16,
+                          max_requesters=16, use_mesh=True, nshards=8,
+                          nservers=256, auction=tier, device=device)
+               for tier in ("device", "host")]
+    for eng in engines:
+        if not isinstance(eng.solver, DistributedAssignmentSolver):
+            raise AssertionError("PlanEngine(use_mesh=True, nshards=8) did "
+                                 "not build the sharded solver")
+        # the engine's timed rules (pump cadence, inflow and suppression
+        # lifetimes) off, so the two engines see the same rounds however
+        # long each tier's plan takes
+        eng.PUMP_INTERVAL = eng.INFLOW_MIN_AGE = 0.0
+        eng.INFLOW_TTL = eng.SUPPRESS_TTL = eng.PARK_RECENT = 1e9
+        eng.LOOK_GROW_WINDOW = 1e9
+    rng = np.random.default_rng(5)
+    seq = [0]
+    matched = 0
+    for rnd in range(6):
+        snaps = {}
+        for s in range(100, 356):
+            tasks = []
+            for _ in range(int(rng.integers(0, 6))):
+                seq[0] += 1
+                tasks.append((seq[0], int(rng.integers(1, 9)),
+                              int(rng.integers(-50, 50)), 64))
+            tasks.sort(key=lambda t: -t[2])
+            reqs = [(s * 200 + i, rnd * 100 + i + 1,
+                     [int(rng.integers(1, 9))])
+                    for i in range(int(rng.integers(0, 4)))]
+            snaps[s] = {"tasks": tasks, "reqs": reqs, "consumers": 1,
+                        "nbytes": 64 * len(tasks), "stamp": float(rnd),
+                        "task_stamp": float(rnd)}
+        got = [eng.round(snaps, None) for eng in engines]
+        if got[0] != got[1]:
+            raise AssertionError(f"engine round {rnd}: the device tier's "
+                                 f"plan differs from the host tier's")
+        matched += len(got[0][0])
+    launches_engine = auction.launches - launches
+    on_card = device == "cuda"
+    if engines[0].solver._seen_member_gen is None or matched == 0 \
+            or launches_engine != on_card * engines[0].solver.solve_count:
+        raise AssertionError("the engine rounds did not plan through the "
+                             "view path and the kernel")
+    report(f"phase 5: PlanEngine(use_mesh=True, nshards=8) x 6 rounds "
+           f"through the ledger view: {matched} matches, device tier == "
+           f"host tier, {launches_engine} auction launches")
+    if launches != on_card * sum(plans) or not all(plans):
+        raise AssertionError(f"plan_bench did not run one auction launch per "
+                             f"device plan: launches={launches} "
+                             f"plans={plans}")
+    return launches, sum(plans), kept[scales[-1][0]], out
+
+
+def run_workloads(gs, report, device="cuda"):
+    """Phase 6: the known-answer workloads in planned-balancer worlds on the
+    card (``device="cpu"`` for a rehearsal, where nothing launches).
+    Returns the greedy-sweep launches and device solves of all runs."""
+    import dataclasses
+
+    from adlb_tpu_torch.balancer import solve
+    from adlb_tpu_torch.runtime.world import Config
+    from adlb_tpu_torch.workloads import gfmc, hotspot, model, nq, sudoku, tsp
+
+    cfg = Config(balancer="tpu", device=device, solver_host_threshold=0,
+                 balancer_max_tasks=64, balancer_max_requesters=16,
+                 exhaust_check_interval=0.15)
+    dists = tsp.dist_matrix(tsp.make_cities(9, seed=3))
+    runs = (
+        ("nq n=8", lambda: nq.run(n=8, num_app_ranks=4, nservers=2, cfg=cfg),
+         lambda r: r.solutions == nq.KNOWN_SOLUTIONS[8],
+         lambda r: f"{r.solutions} solutions"),
+        ("sudoku", lambda: sudoku.run(num_app_ranks=4, nservers=2, cfg=cfg),
+         lambda r: r.valid, lambda r: "valid solution"),
+        ("gfmc 6x3x2", lambda: gfmc.run(num_a=6, bs_per_a=3, cs_per_b=2,
+                                        num_app_ranks=5, nservers=2, cfg=cfg),
+         lambda r: r.ok, lambda r: f"counts {r.counts}"),
+        ("tsp 9 cities", lambda: tsp.run(n_cities=9, num_app_ranks=4,
+                                         nservers=2, seed=3, cfg=cfg),
+         lambda r: r.best == tsp.brute_force_optimum(dists),
+         lambda r: f"tour length {r.best}"),
+        ("hotspot 400 tokens", lambda: hotspot.run(
+            n_tasks=400, work_time=0.002, num_app_ranks=9, nservers=4,
+            cfg=cfg), lambda r: r.tasks == 400,
+         lambda r: f"{r.tasks} tokens, {r.tasks_per_sec:.1f} tasks/s"),
+        ("model mesh=auto", lambda: model.run(
+            numprobs=40, work_secs=0.002, num_app_ranks=4, nservers=2,
+            cfg=dataclasses.replace(cfg, balancer_mesh="auto")),
+         lambda r: r.ok, lambda r: f"{r.num_done} of {r.numprobs} done"),
+    )
+    total_launches = total_solves = 0
+    for name, run, ok, what in runs:
+        gs.reset_counts()
+        solve.solve_counts.update(device=0, host=0)
+        t0 = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t0
+        launches, solves = gs.launches, dict(solve.solve_counts)
+        if not ok(res):
+            raise AssertionError(f"workload {name} returned a wrong answer: "
+                                 f"{res}")
+        if launches != (device == "cuda") * solves["device"] \
+                or solves["host"]:
+            raise AssertionError(f"workload {name}: {launches} greedy-sweep "
+                                 f"launches for {solves} solves")
+        total_launches += launches
+        total_solves += solves["device"]
+        report(f"phase 6: {name}: {what(res)} (known answer) in {wall:.3f} s, "
+               f"{solves['device']} device solves = {launches} kernel "
+               f"launches")
+    if total_solves == 0:
+        raise AssertionError("no workload ran a device solve")
+    return total_launches, total_solves
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -353,12 +718,17 @@ def main() -> int:
     def report(line: str) -> None:
         print(f"[{label}] {line}", flush=True)
 
+    from adlb_tpu_torch.balancer import auction, cuda_build
+
     t0 = time.perf_counter()
-    so = gs.build()
-    report(f"phase 1: built {so.name} in {time.perf_counter() - t0:.2f} s")
-    for ln in gs.build_log.splitlines():
-        if "ptxas" in ln:
-            report(f"phase 1: {ln.strip()}")
+    cuda_build.build_all([gs.SOURCE, auction.SOURCE])  # one nvcc each, together
+    built = [gs.build(), auction.build()]
+    report(f"phase 1: built {', '.join(so.name for so in built)} in "
+           f"{time.perf_counter() - t0:.2f} s")
+    for log in (gs.build_log, auction.build_log):
+        for ln in log.splitlines():
+            if "ptxas" in ln:
+                report(f"phase 1: {ln.strip()}")
 
     by_case, max_err = check_kernel(gs, solve._host_greedy, report)
 
@@ -385,6 +755,7 @@ def main() -> int:
 
     solve.AssignmentSolver._device_solve = timed
     gs.reset_counts()
+    auction.launches = 0
     solve.solve_counts.update(device=0, host=0)
     nunits = 10_000
     try:
@@ -436,6 +807,19 @@ def main() -> int:
                              f"device solve: launches={launches} "
                              f"routes={route_launches} counts={counts}")
 
+    auction_err = check_auction(auction, report)
+    t0 = time.perf_counter()
+    auction_launches, device_plans, solver10k, _ = run_sharded_planner(
+        auction, report)
+    report(f"phase 5: plan_bench rows in {time.perf_counter() - t0:.1f} s, "
+           f"{auction_launches} auction launches for {device_plans} device "
+           f"plans")
+    timed10k = time_device_plan(solver10k, auction, report)
+    del solver10k
+    work_launches, work_solves = run_workloads(gs, report)
+    report(f"phase 6: {work_solves} device solves, {work_launches} "
+           f"greedy-sweep launches over the six workloads")
+
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "adlb_tpu" or m.startswith("adlb_tpu.")]
@@ -461,6 +845,21 @@ def main() -> int:
         "library_ms": None,
         "launches_by_route": route_launches,
         "by_case_65536x8192": by_case,
+    }, {
+        "name": "auction",
+        "route": "cuda",
+        "source": "adlb_tpu_torch/csrc/auction.cu",
+        "replaces": "adlb_tpu/balancer/distributed.py:190",
+        "launches": auction_launches,
+        "max_abs_err": auction_err,
+        "ms": timed10k["ms"],
+        "ms_back_to_back": timed10k["ms_back_to_back"],
+        "plain_ms": timed10k["plain_ms"],
+        "bound_ms": timed10k["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "device_plan_ms": timed10k["device_plan_ms"],
+        "at_10k_row": timed10k,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

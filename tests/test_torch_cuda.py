@@ -1,8 +1,15 @@
-"""Card-only tests of the port's CUDA kernel (the kernel has no CPU mode):
-every route at the main path's shape, the route the kernel reports against
-``requester_classes``, one launch per device solve, and requester counts
-whose working set does not fit in shared memory (the kernel's scratch
-buffer in device memory).
+"""Card-only tests of the port's CUDA kernels (a kernel has no CPU mode).
+
+The greedy sweep: every route at the main path's shape, the route the
+kernel reports against ``requester_classes``, one launch per device solve,
+and requester counts whose working set does not fit in shared memory (the
+kernel's scratch buffer in device memory).
+
+The auction: bit-equal to ``auction_torch`` and to the numpy twin
+``_host_auction`` on fuzzed instances (one past shared memory, one
+multi-job type axis), one launch per device plan, the sharded solver's
+device tier equal to its host tier over churn rounds, and a failed build
+or launch raises.
 
 They skip without a CUDA device. This file imports neither JAX nor the
 JAX package, so it also runs where JAX is not installed:
@@ -14,7 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from adlb_tpu_torch.balancer import greedy_sweep
+from adlb_tpu_torch.balancer import auction, cuda_build, greedy_sweep
+from adlb_tpu_torch.balancer import distributed as dist
+from adlb_tpu_torch.balancer import plan_bench
 from adlb_tpu_torch.balancer.solve import _NEG, AssignmentSolver, _host_greedy
 
 
@@ -164,3 +173,91 @@ def test_kernel_refuses_bad_inputs(card):
         greedy_sweep.greedy_assign(ins[0].to(torch.int64), *ins[1:])
     with pytest.raises(ValueError, match="task_prio on"):
         greedy_sweep.greedy_assign(ins[0], ins[1].cpu(), *ins[2:])
+
+
+def _auction_instance(rng, T, m, nshards, rounds, Sl=4, K=8, R=4,
+                      slots=None):
+    """Random task table -> per-shard candidates -> merged lists, random
+    requester masks -> slot tables: (numpy twin inputs, card tensors)."""
+    S = nshards * Sl
+    tp = rng.integers(-50, 50, (S, K)).astype(np.int32)
+    tt = rng.integers(0, T, (S, K)).astype(np.int32)
+    tp[rng.random((S, K)) < 0.2] = int(_NEG)
+    rk = rng.permutation(S).astype(np.int32)
+    NR = S * R
+    C, D = dist._slot_sizes(slots, m, rounds, NR)
+    cp, cg = dist._shard_candidates(
+        torch.from_numpy(tp).view(nshards, Sl, K),
+        torch.from_numpy(tt).view(nshards, Sl, K),
+        torch.from_numpy(rk).view(nshards, Sl), T, D)
+    gp, gg = dist._merge_shard_major(cp.numpy(), cg.numpy())
+    rv = rng.random(NR) < 0.9
+    rw, lens = dist._reqwin(rng.random((NR, T)) < 0.4, rv, T, C)
+    rwc, open0 = dist._compact_reqwin(rw)
+    ins = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+           for a in (gp, gg, rwc, lens, open0)]
+    return (gp, gg, rw, lens, rv), ins
+
+
+#: (T, m, nshards, rounds, servers per shard, slots per type): m = 1 and
+#: m past a warp, T = 24 as 3 jobs x 8 types, and two shapes whose working
+#: set does not fit in shared memory (T=24, C=1024; T=32, C=1024)
+AUCTION_CASES = [(1, 1, 1, 16, 4, None), (4, 8, 2, 16, 4, None),
+                 (8, 32, 8, 16, 32, None), (8, 40, 8, 16, 32, None),
+                 (24, 32, 8, 16, 32, 512), (24, 32, 8, 32, 64, 1024),
+                 (32, 8, 8, 4, 64, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,m,nshards,rounds,sl,slots", AUCTION_CASES)
+def test_auction_kernel_matches_plain_and_host(card, T, m, nshards, rounds,
+                                               sl, slots):
+    rng = np.random.default_rng(T * 100 + m)
+    (gp, gg, rw, lens, rv), ins = _auction_instance(
+        rng, T, m, nshards, rounds, Sl=sl, slots=slots)
+    C = rw.shape[1]
+    work = auction.Workspace(T, C, m, card)
+    before = auction.launches
+    got = auction.auction(*ins, rounds, m, work=work)
+    torch.cuda.synchronize()
+    assert auction.launches == before + 1
+    assert torch.equal(got, auction.auction_torch(*ins, rounds, m))
+    want = dist._host_auction(gp, gg, rw, lens, rv.copy(), rounds, m)
+    np.testing.assert_array_equal(got.cpu().numpy()[:, :C], want)
+    assert (want >= 0).sum() > 0
+    assert (work.scratch is not None) == (slots == 1024)
+    with pytest.raises(ValueError, match="workspace"):
+        auction.auction(*ins, rounds, m + 1, work=work)
+
+
+@pytest.mark.cuda
+def test_auction_launch_failure_raises(card):
+    (_, _, rw, _, _), ins = _auction_instance(np.random.default_rng(3), 4,
+                                              8, 2, 4)
+    work = auction.Workspace(4, rw.shape[1], 8, card)
+    with pytest.raises(RuntimeError, match="auction launch failed"):
+        work.launch(*ins, -1)  # the kernel refuses a negative round count
+    with pytest.raises(ValueError, match="workspace"):
+        auction.Workspace(4, rw.shape[1] + 1, 8, card).launch(*ins, 4)
+
+
+@pytest.mark.cuda
+def test_kernel_build_failure_raises(card, tmp_path):
+    broken = tmp_path / "broken.cu"
+    broken.write_text("this is not C++\n")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda_build.build_all([broken])
+
+
+@pytest.mark.cuda
+def test_sharded_device_tier_equals_host_tier_over_churn(card):
+    """plan_bench's first two rows on the card: every round's device-tier
+    pairs equal the host tier's; one auction launch per device plan."""
+    before = auction.launches
+    plans = []
+    out = plan_bench.run_sweep(scales=plan_bench.SCALES[:2], reps=8,
+                               nshards=8, device="cuda", check_host=True,
+                               on_row=lambda s, r: plans.append(s.solve_count))
+    assert [r["rounds_equal_to_host_tier"] for r in out["rows"]] == [8, 8]
+    assert all(r["pairs_total"] > 0 for r in out["rows"])
+    assert auction.launches - before == sum(plans)

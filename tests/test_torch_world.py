@@ -26,6 +26,7 @@ import adlb_tpu_torch
 from adlb_tpu.runtime.world import Config as RefConfig
 from adlb_tpu_torch.balancer import greedy_sweep
 from adlb_tpu_torch.balancer import solve as tsolve
+from adlb_tpu_torch.balancer.distributed import DistributedAssignmentSolver
 from adlb_tpu_torch.balancer.engine import PlanEngine
 from adlb_tpu_torch.runtime.world import Config
 from adlb_tpu_torch.unported import require
@@ -151,7 +152,6 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"balancer_mesh": "auto"},
     {"native_queues": "on"},
     {"server_impl": "native"},
     {"spill_dir": "spill"},
@@ -165,14 +165,53 @@ def test_unported_features_raise(kw):
 
 
 def test_unported_modules_and_mesh_raise():
-    with pytest.raises(NotImplementedError, match="sharded planner"):
-        PlanEngine(types=TYPES, max_tasks=4, max_requesters=2, use_mesh=True,
-                   device="cpu")
+    # one device (the CPU): the mesh option plans on the single-device
+    # solver, as the JAX package does on one chip
+    engine = PlanEngine(types=TYPES, max_tasks=4, max_requesters=2,
+                        use_mesh=True, device="cpu")
+    assert isinstance(engine.solver, tsolve.AssignmentSolver)
     with pytest.raises(NotImplementedError, match="runtime.spill"):
         require("runtime.spill")
     assert require("runtime.queues").WorkQueue is not None
     with pytest.raises(ValueError, match="solver_backend"):
         Config(device="cpu", solver_backend="pallas")
+
+
+def test_mesh_config_validates():
+    cfg = Config(balancer="tpu", balancer_mesh="auto", device="cpu")
+    assert cfg.balancer_mesh == "auto"
+    Config(balancer_mesh="auto", balancer_auction="host", device="cpu")
+    with pytest.raises(ValueError, match="balancer_mesh"):
+        Config(balancer_mesh="on", device="cpu")
+
+
+def test_plan_engine_builds_the_sharded_solver_and_plans_across_servers():
+    engine = PlanEngine(types=(1, 2), max_tasks=8, max_requesters=4,
+                        use_mesh=True, nshards=4, nservers=6, device="cpu")
+    solver = engine.solver
+    assert isinstance(solver, DistributedAssignmentSolver)
+    assert (solver.nshards, solver.S) == (4, 8)  # ceil(6 / 4) = 2 per shard
+    snaps = {
+        100: {"tasks": [(1, 1, 5, 8), (2, 2, 3, 8)], "reqs": [],
+              "nbytes": 16, "consumers": 1},
+        101: {"tasks": [], "reqs": [(7, 1, [1]), (8, 2, [2])],
+              "nbytes": 0, "consumers": 2},
+    }
+    matches, _ = engine.round(snaps, None)
+    assert sorted(matches) == [(100, 1, 101, 7, 1), (100, 2, 101, 8, 2)]
+    assert solver.solve_count == 1
+
+
+def test_sharded_solver_construction_error_propagates(monkeypatch):
+    """The JAX package degrades to the single-device solver on any error
+    here; the port raises."""
+    with pytest.raises(ValueError, match="auction"):
+        PlanEngine(types=TYPES, max_tasks=4, max_requesters=2, use_mesh=True,
+                   nshards=2, auction="bogus", device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        PlanEngine(types=TYPES, max_tasks=4, max_requesters=2, use_mesh=True,
+                   nshards=2, device="cuda")
 
 
 def test_device_solve_failure_aborts_the_world(monkeypatch):
