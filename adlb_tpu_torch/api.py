@@ -18,7 +18,6 @@ import dataclasses
 import threading
 from typing import Any, Callable, Optional, Sequence
 
-from adlb_tpu_torch.unported import require
 from adlb_tpu_torch.runtime.client import Client
 from adlb_tpu_torch.runtime.debug_server import DebugServer
 from adlb_tpu_torch.runtime.server import Server
@@ -240,6 +239,13 @@ class WorldResult:
     # InfoKey.QUARANTINED, same conservation contract as FAILOVER_LOST:
     # every unit is completed, re-executed, or counted here
     quarantined: int = 0
+    # process worlds (spawn_world): the planning process's solve counts,
+    # greedy-sweep launches and checked solves during the world
+    # (balancer.solve.planner_since) and its planning rounds ("rounds",
+    # "round_s": their host-clock seconds in all), keyed by the master
+    # server's rank, or by the sidecar's pseudo-rank (nranks) in native
+    # worlds
+    planner: dict[int, dict] = dataclasses.field(default_factory=dict)
 
     def save_trace(self, path: str) -> None:
         from adlb_tpu_torch.runtime.trace import save_chrome_trace
@@ -298,7 +304,7 @@ def join_world(
     """
     import os
 
-    TcpEndpoint = require("runtime.transport_tcp").TcpEndpoint
+    from adlb_tpu_torch.runtime.transport_tcp import TcpEndpoint
 
     env_ns = os.environ.get("ADLB_NUM_SERVERS")
     if nservers is None:
@@ -346,7 +352,7 @@ def join_world(
     binary_peers = (
         set(world.server_ranks) if cfg.server_impl == "native" else None
     )
-    select_codec = require("runtime.codec").select_codec
+    from adlb_tpu_torch.runtime.codec import select_codec
 
     select_codec(cfg.codec)
     if attach:
@@ -382,10 +388,11 @@ def join_world(
     # shm ring fabric toward same-host ranks (the launcher exports
     # ADLB_FABRIC/ADLB_SHM_KEY; a bare join derives the key from the
     # rendezvous directory, so all parties of one world agree)
-    shm = require("runtime.transport_shm")
-    key_for_rendezvous = shm.key_for_rendezvous
-    maybe_shm = shm.maybe_shm
-    resolve_fabric = shm.resolve_fabric
+    from adlb_tpu_torch.runtime.transport_shm import (
+        key_for_rendezvous,
+        maybe_shm,
+        resolve_fabric,
+    )
 
     if resolve_fabric(cfg) == "shm":
         shm_key = os.environ.get("ADLB_SHM_KEY") or key_for_rendezvous(

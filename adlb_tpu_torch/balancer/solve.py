@@ -21,6 +21,7 @@ which is the point: same semantics, global scope, O(1) staleness.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional, Sequence
 
@@ -40,6 +41,50 @@ _I32MAX = 2**31 - 1
 #: solves by route across every solver of the process ("device": the
 #: kernel or its plain version on the CPU; "host": the numpy twin)
 solve_counts = {"device": 0, "host": 0}
+
+#: every ``check_every``-th device solve of the process (the 1st, the
+#: 1 + check_every-th, ...) keeps a copy of its inputs and result, and
+#: :func:`planner_counts` holds the kept ones against the numpy twin
+#: ``_host_greedy``, after the solves, off the planning loop's clock.
+#: 0 keeps none. A process world's ranks and a launcher read it from
+#: ``ADLB_CHECK_SOLVES`` in their environment.
+check_every = int(os.environ.get("ADLB_CHECK_SOLVES") or 0)
+_kept: list = []
+_checks = {"checked": 0, "wrong": 0}
+
+
+def reset_counts() -> None:
+    """Zero the solve counts and the check tallies, drop the kept solves."""
+    solve_counts.update(device=0, host=0)
+    _checks.update(checked=0, wrong=0)
+    _kept.clear()
+
+
+def planner_counts() -> dict:
+    """This process's solve counts, greedy-sweep kernel launches and kept
+    solves checked (``solves_checked``) and found different from the numpy
+    twin (``solves_wrong``): what the planning rank or sidecar of a process
+    world reports back to its harness (``WorldResult.planner``)."""
+    while _kept:
+        arrays, out = _kept.pop()
+        _checks["checked"] += 1
+        _checks["wrong"] += not np.array_equal(out, _host_greedy(*arrays))
+    return {"device_solves": solve_counts["device"],
+            "host_solves": solve_counts["host"],
+            "greedy_sweep_launches": greedy_sweep.launches,
+            "solves_checked": _checks["checked"],
+            "solves_wrong": _checks["wrong"]}
+
+
+def planner_since(before: dict, metrics) -> dict:
+    """What a planning process reports to its harness: :func:`planner_counts`
+    since ``before``, plus its planning rounds (``rounds``) and their
+    host-clock seconds (``round_s``) from ``metrics``' ``balancer_round_s``
+    histogram, which :meth:`PlanEngine.round` fills."""
+    after = planner_counts()
+    rounds = metrics.histogram("balancer_round_s")
+    return {**{k: after[k] - before[k] for k in after},
+            "rounds": rounds.n, "round_s": rounds.sum}
 
 
 def _pack2(primary, secondary):
@@ -256,15 +301,18 @@ class AssignmentSolver:
 
     def _device_solve(self, task_prio, task_type, req_mask, req_valid):
         solve_counts["device"] += 1
+        arrays = (task_prio, task_type, req_mask, req_valid)
         if self.device.type == "cuda":
             shape = (task_prio.shape[0],) + req_mask.shape
             if self.handoff is None or self.handoff.shape != shape:
                 self.handoff = CudaHandoff(*shape, self.device)
-            return self.handoff.solve(task_prio, task_type, req_mask,
-                                      req_valid)
-        inputs = solver_inputs_from_numpy(
-            task_prio, task_type, req_mask, req_valid, self.device)
-        return greedy_sweep.greedy_assign_torch(*inputs).numpy()
+            out = self.handoff.solve(*arrays)
+        else:
+            inputs = solver_inputs_from_numpy(*arrays, self.device)
+            out = greedy_sweep.greedy_assign_torch(*inputs).numpy()
+        if check_every and (solve_counts["device"] - 1) % check_every == 0:
+            _kept.append(([np.array(a) for a in arrays], out.copy()))
+        return out
 
     def solve(self, snapshots, world) -> list:
         """snapshots: server_rank -> {"tasks": [(seqno, type, prio, len)...],

@@ -59,7 +59,6 @@ import threading
 import time
 from typing import Any, Callable, Optional, Sequence
 
-from adlb_tpu_torch.unported import require
 from adlb_tpu_torch.runtime.messages import Msg, Tag, msg
 from adlb_tpu_torch.runtime.world import Config, WorldSpec
 from adlb_tpu_torch.types import ADLB_SUCCESS, AdlbError
@@ -341,7 +340,7 @@ def attach_app(
         ep = fabric.add_endpoint(prov)
         fields = dict(mop="attach", kind="app")
     else:
-        TcpEndpoint = require("runtime.transport_tcp").TcpEndpoint
+        from adlb_tpu_torch.runtime.transport_tcp import TcpEndpoint
 
         if master_addr is None:
             raise ValueError("attach_app over TCP needs master_addr")
@@ -415,7 +414,7 @@ def attach_server(
         ep = fabric.add_endpoint(prov)
         fields = dict(mop="attach", kind="server")
     else:
-        TcpEndpoint = require("runtime.transport_tcp").TcpEndpoint
+        from adlb_tpu_torch.runtime.transport_tcp import TcpEndpoint
 
         if master_addr is None:
             raise ValueError("attach_server over TCP needs master_addr")

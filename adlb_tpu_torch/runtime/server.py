@@ -939,7 +939,7 @@ class Server:
         if cfg.native_queues == "off" or cfg.spill_dir is not None:
             return WorkQueue()
         try:
-            NativeWorkQueue = require("native.wq").NativeWorkQueue
+            from adlb_tpu_torch.native.wq import NativeWorkQueue
 
             return NativeWorkQueue()
         except (RuntimeError, OSError, ImportError):

@@ -452,10 +452,8 @@ class Config:
     # (src/adlb.c:558-710; the reference hard-codes 30 s)
     selfdiag_stuck_after: float = 5.0  # rq age that counts as "stuck"
     # server work-queue implementation: "auto" uses the C++ core when it
-    # builds, falling back to the pure-Python queues; "on" requires it.
-    # The port has no native plane yet: "off" by default, "auto" runs the
-    # pure-Python queues, and "on" raises NotImplementedError
-    native_queues: str = "off"
+    # builds, falling back to the pure-Python queues; "on" requires it
+    native_queues: str = "auto"
     # process-world transport fabric (spawn_world / launch.py / joined
     # clients; in-proc thread worlds always use the queue fabric):
     # "auto" upgrades same-host rank pairs to the shared-memory ring
@@ -798,9 +796,6 @@ class Config:
         """Features whose modules are later slices of the port fail here,
         at validation, instead of deep inside a running world."""
         unported = {
-            "native_queues='on' (native plane)": self.native_queues == "on",
-            "server_impl='native' (native plane)":
-                self.server_impl == "native",
             "spill_dir (spill tier)": self.spill_dir is not None,
             "wal_dir (write-ahead log)": self.wal_dir is not None,
             "on_server_failure='failover' (replicas)":

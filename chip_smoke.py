@@ -17,12 +17,15 @@ no result). Phases:
    route takes (exact equality: the outputs are integer assignments; the
    route the kernel reports must be the one ``requester_classes`` names),
    and time it: the wrapper, the sort alone, the kernel alone, the plain
-   version;
+   version; then, checked only, the other shapes the main path solves at:
+   phase 8's 32768 x 4096 (8 servers) per route, instances shaped like the
+   worlds of phases 3 and 8 (T=5: workers want the four work types, the
+   master the answer type) and phase 9's 512 x 128 with one type;
 3. drive the port's main path: a ``run_world`` with the planned balancer on
    the card, 16 servers x (4096 tasks, 512 requesters), so every device
    solve is a 65536 x 8192 instance; every unit must be consumed exactly
    once, every device solve must be exactly one kernel launch, and every
-   eighth solve is held against ``_host_greedy``. Prints the launches per
+   eighth solve must equal ``_host_greedy``. Prints the launches per
    route and the median in-world solve split on the host clock into
    hand-off, sort + launch enqueue and wait for the result;
 4. hold the auction kernel against its plain version ``auction_torch`` and
@@ -39,7 +42,29 @@ no result). Phases:
    merge, auction) and its split, and the plain version, timed;
 6. run the known-answer workloads (nq, sudoku, gfmc, tsp, hotspot, model)
    in planned-balancer worlds on the card; each must return its answer,
-   and every device solve must be one greedy-sweep launch.
+   and every device solve must be one greedy-sweep launch;
+7. drive the all-native plane planned on the card: ``hotspot_native`` with
+   16 C++ server daemons and 112 C clients (128 ranks), 20,000 tasks of
+   2 ms entering one server, the planning sidecar at the phase-3 caps so
+   every sidecar solve is a 65536 x 8192 instance; every task done once,
+   every device solve one kernel launch, no host solve, every eighth solve
+   equal to ``_host_greedy``; units/s, rounds and the solve split printed
+   beside phase 3's. Then the five native known-answer workloads (nq,
+   sudoku, gfmc, tsp, hotspot) at their default sizes on the card;
+8. a ``spawn_world`` process world, 32 apps x 8 Python servers at the same
+   per-server caps, phase 3's app with 5,000 units; the master is a child
+   started without fork that plans on the card and reports its solves,
+   kernel launches and checked solves back;
+9. two launchers (``python -m adlb_tpu_torch.runtime.launch``) on this
+   host split one world with native servers and the sidecar on the card
+   in the master's launcher, ``nq_c`` as the app: nq's known answer, and
+   the master launcher's kernel launches equal its device solves, every
+   one of them checked.
+
+Every process that plans keeps every eighth device solve (phase 9: every
+one) and holds it against ``_host_greedy`` after the world
+(``solve.check_every``, ``ADLB_CHECK_SOLVES`` in the children's
+environment); a phase fails on any solve that differs.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -48,20 +73,32 @@ and nothing of the JAX package.
 
 from __future__ import annotations
 
+import functools
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
-import torch
 
+# torch is imported inside the functions that use it: phase 8's ranks are
+# spawned interpreters that import this module for its app, and only the
+# planning rank needs torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 NEG = -(2**31) + 1
+#: every CHECK_EVERY-th device solve of a planning process is held
+#: against ``_host_greedy`` (see ``solve.check_every``)
+CHECK_EVERY = 8
 
 
 def card_label() -> str:
+    import torch
+
     try:
         out = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -75,6 +112,8 @@ def card_label() -> str:
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median per-call device time with CUDA events, each call on an idle
     card, after warm-up (the method of the port's first chip_smoke.py)."""
+    import torch
+
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -94,6 +133,8 @@ def back_to_back_ms(fn, reps: int, warmup: int = 3) -> float:
     """Mean device time per call with CUDA events around ``reps`` calls in a
     row, after warm-up: the host enqueues the next call while the card runs
     this one, so it reads lower than :func:`time_ms` by the launch gaps."""
+    import torch
+
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -146,6 +187,19 @@ def widen(arrs, t):
     wide = np.zeros((rm.shape[0], t), dtype=bool)
     wide[:, :rm.shape[1]] = rm
     return tp, tt, wide, rv
+
+
+def world_instance(rng, nt, nr):
+    """Shaped like the solves of phases 3 and 8: four work types and the
+    answer type (T=5); a 32nd of the requesters (the masters) want only the
+    answer type, the others the four work types; a quarter of the task
+    slots padding, a fifth of the requester slots empty."""
+    tp, tt, _, rv = random_instance(rng, nt, nr, 5, prio_hi=97)
+    rm = np.zeros((nr, 5), dtype=bool)
+    master = rng.random(nr) < 1 / 32
+    rm[master, 4] = True
+    rm[~master, :4] = True
+    return tp, tt, rm, rv
 
 
 def one_type_instance(rng, nt, nr, t):
@@ -206,6 +260,8 @@ ROUTE_CASES = (("partition", lambda rng, nt, nr: bench_instance(rng, nt, nr)),
 def check_kernel(gs, host_greedy, report):
     """Phase 2: exact agreement, routes and times. Returns the kernel's
     numbers at 65536x8192 per case (the main path's is ``partition``)."""
+    import torch
+
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     err = 0
@@ -291,59 +347,72 @@ def check_kernel(gs, host_greedy, report):
             if route == "classes":
                 timed_case("classes as sweep", "sweep", widen(arrs, 11),
                            nt, nr)
+    # checked only: the other shapes the main path solves at
+    rng = np.random.default_rng(3)
+    for route, make in ROUTE_CASES:
+        run(f"{route} 32768x4096 (phase 8's shape)", make(rng, 32768, 4096),
+            route)
+    for nt, nr in ((65536, 8192), (32768, 4096)):
+        run(f"world-shaped {nt}x{nr} T=5", world_instance(rng, nt, nr),
+            "partition")
+    run("one type 512x128 T=1 (phase 9's shape)",
+        random_instance(rng, 512, 128, 1))
+    run("all open 512x128 T=1", bench_instance(rng, 512, 128, t=1))
     return by_case, err
 
 
-def run_main_path(device="cuda", nunits=10_000, napps=64, nservers=16,
-                  max_tasks=4096, max_requesters=512):
-    """Phase 3: a planned-balancer world on the card (the arguments only
-    shrink it for a rehearsal on the CPU). Returns its wall time."""
-    from adlb_tpu_torch import ADLB_SUCCESS, run_world
+MAIN_TYPES = (1, 2, 3, 4)
+MAIN_ANSWER = 9
+
+
+def main_value(i: int) -> int:
+    return (i * 7919) % 1000003
+
+
+def main_path_app(ctx, nunits: int):
+    """Phase 3's app (also phase 8's, so it lives at module level and
+    pickles): rank 0 puts ``nunits`` typed, prioritised units and sums the
+    answers; every other rank reserves, gets and answers until the end."""
+    from adlb_tpu_torch import ADLB_SUCCESS
+
+    if ctx.rank == 0:
+        for i in range(nunits):
+            ctx.put(i.to_bytes(4, "little"), MAIN_TYPES[i % 4],
+                    work_prio=(i * 31) % 97)
+        total = 0
+        for _ in range(nunits):
+            rc, r = ctx.reserve([MAIN_ANSWER])
+            if rc != ADLB_SUCCESS:
+                raise RuntimeError(f"answer reserve failed: rc={rc}")
+            rc, buf = ctx.get_reserved(r.handle)
+            total += int.from_bytes(buf, "little")
+        ctx.set_problem_done()
+        return total
+    seen = []
+    while True:
+        rc, r = ctx.reserve(list(MAIN_TYPES))
+        if rc != ADLB_SUCCESS:
+            return seen
+        rc, buf = ctx.get_reserved(r.handle)
+        if rc != ADLB_SUCCESS:
+            return seen
+        i = int.from_bytes(buf, "little")
+        seen.append(i)
+        ctx.put(main_value(i).to_bytes(8, "little"), MAIN_ANSWER,
+                target_rank=0)
+
+
+def main_path_config(device, max_tasks, max_requesters):
+    """Puts stay at rank 0's home server, so the other servers' workers are
+    fed by the planner's matches and migrations; every solve on the card."""
     from adlb_tpu_torch.runtime.world import Config
 
-    types = (1, 2, 3, 4)
-    answer = 9
+    return Config(balancer="tpu", device=device, solver_host_threshold=0,
+                  put_routing="home", balancer_max_tasks=max_tasks,
+                  balancer_max_requesters=max_requesters)
 
-    def value(i: int) -> int:
-        return (i * 7919) % 1000003
 
-    def app(ctx):
-        if ctx.rank == 0:
-            for i in range(nunits):
-                ctx.put(i.to_bytes(4, "little"), types[i % 4],
-                        work_prio=(i * 31) % 97)
-            total = 0
-            for _ in range(nunits):
-                rc, r = ctx.reserve([answer])
-                if rc != ADLB_SUCCESS:
-                    raise RuntimeError(f"answer reserve failed: rc={rc}")
-                rc, buf = ctx.get_reserved(r.handle)
-                total += int.from_bytes(buf, "little")
-            ctx.set_problem_done()
-            return total
-        seen = []
-        while True:
-            rc, r = ctx.reserve(list(types))
-            if rc != ADLB_SUCCESS:
-                return seen
-            rc, buf = ctx.get_reserved(r.handle)
-            if rc != ADLB_SUCCESS:
-                return seen
-            i = int.from_bytes(buf, "little")
-            seen.append(i)
-            ctx.put(value(i).to_bytes(8, "little"), answer, target_rank=0)
-
-    # puts stay at rank 0's home server, so the other servers' workers
-    # are fed by the planner's matches and migrations
-    cfg = Config(balancer="tpu", device=device, solver_host_threshold=0,
-                 put_routing="home",
-                 balancer_max_tasks=max_tasks,
-                 balancer_max_requesters=max_requesters)
-    t0 = time.perf_counter()
-    res = run_world(num_app_ranks=napps, nservers=nservers,
-                    types=types + (answer,), app_fn=app, cfg=cfg,
-                    timeout=600)
-    wall = time.perf_counter() - t0
+def check_main_path(res, napps: int, nunits: int) -> None:
     if res.aborted:
         raise AssertionError("world aborted")
     consumed = sorted(i for r in range(1, napps)
@@ -352,9 +421,111 @@ def run_main_path(device="cuda", nunits=10_000, napps=64, nservers=16,
         raise AssertionError(
             f"units not consumed exactly once: {len(consumed)} consumed, "
             f"{len(set(consumed))} distinct of {nunits}")
-    if res.app_results[0] != sum(value(i) for i in range(nunits)):
+    if res.app_results[0] != sum(main_value(i) for i in range(nunits)):
         raise AssertionError("answer total differs")
+
+
+def run_main_path(device="cuda", nunits=10_000, napps=64, nservers=16,
+                  max_tasks=4096, max_requesters=512):
+    """Phase 3: a planned-balancer world on the card (the arguments only
+    shrink it for a rehearsal on the CPU). Returns its wall time."""
+    from adlb_tpu_torch import run_world
+
+    t0 = time.perf_counter()
+    res = run_world(num_app_ranks=napps, nservers=nservers,
+                    types=MAIN_TYPES + (MAIN_ANSWER,),
+                    app_fn=functools.partial(main_path_app, nunits=nunits),
+                    cfg=main_path_config(device, max_tasks, max_requesters),
+                    timeout=600)
+    wall = time.perf_counter() - t0
+    check_main_path(res, napps, nunits)
     return wall
+
+
+class PlannerTimer:
+    """Host-clock time of every planning round (``PlanEngine.round``, in
+    the in-server planner and in the sidecar alike) and of every device
+    solve (numpy in, numpy out) with its split: hand-off (numpy copies into
+    the pinned buffer and the H2D enqueue), sort + launch + D2H enqueue,
+    wait for the result."""
+
+    def __init__(self):
+        from adlb_tpu_torch.balancer import engine, solve
+
+        self.engine, self.solve = engine, solve
+        self.round_s, self.solve_s, self.splits = [], [], []
+
+    def __enter__(self):
+        timer = self
+        plan_round = self.untimed_round = self.engine.PlanEngine.round
+        device_solve = self.untimed_solve = \
+            self.solve.AssignmentSolver._device_solve
+
+        def timed_round(engine, *args, **kw):
+            t = time.perf_counter()
+            out = plan_round(engine, *args, **kw)
+            timer.round_s.append(time.perf_counter() - t)
+            return out
+
+        def timed_solve(solver, *arrays):
+            t = time.perf_counter()
+            out = device_solve(solver, *arrays)
+            timer.solve_s.append(time.perf_counter() - t)
+            if solver.handoff is not None:  # the card route's hand-off
+                timer.splits.append(solver.handoff.split)
+            return out
+
+        self.engine.PlanEngine.round = timed_round
+        self.solve.AssignmentSolver._device_solve = timed_solve
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.PlanEngine.round = self.untimed_round
+        self.solve.AssignmentSolver._device_solve = self.untimed_solve
+
+    def text(self, wall: float) -> str:
+        out = (f"{len(self.round_s)} planning rounds, median "
+               f"{1e3 * statistics.median(self.round_s or [0]):.3f} ms, "
+               f"{sum(self.round_s):.3f} s in all")
+        if self.solve_s:
+            out += (f"; device solves {sum(self.solve_s):.3f} s in all "
+                    f"({100 * sum(self.solve_s) / wall:.1f}% of wall), "
+                    f"median {1e3 * statistics.median(self.solve_s):.3f} "
+                    f"ms, max {1e3 * max(self.solve_s):.3f} ms each; median "
+                    f"split: {split_text(self.splits)}")
+        return out
+
+
+def keep_solves(every: int = CHECK_EVERY) -> None:
+    """Hold every ``every``-th device solve of this process, and of the
+    planning processes it starts, against ``_host_greedy``."""
+    from adlb_tpu_torch.balancer import solve
+
+    solve.check_every = every
+    os.environ["ADLB_CHECK_SOLVES"] = str(every)
+
+
+def check_planned(what: str, counts: dict, device: str = "cuda",
+                  need_solves: bool = True) -> None:
+    """A planning process's counts (``solve.planner_counts``, or what a
+    child sent back): device solves ran (when ``need_solves``), none on
+    the host, one kernel launch each on the card, at least every
+    CHECK_EVERY-th solve checked, and every checked one equal to
+    ``_host_greedy``."""
+    solves = counts["device_solves"]
+    if (need_solves and solves == 0) or counts["host_solves"] \
+            or counts["greedy_sweep_launches"] != (device == "cuda") * solves \
+            or counts["solves_checked"] < solves // CHECK_EVERY \
+            or counts["solves_wrong"]:
+        raise AssertionError(f"{what}: planner counts {counts}")
+
+
+def split_text(rows) -> str:
+    if not rows:
+        return "no card hand-off"
+    med = [1e3 * statistics.median(col) for col in zip(*rows)]
+    return (f"hand-off {med[0]:.3f} ms, sort + launch enqueue "
+            f"{med[1]:.3f} ms, wait for the result {med[2]:.3f} ms")
 
 
 def auction_instance(rng, T, m, nshards, rounds, sl=4, K=8, R=4, slots=None,
@@ -364,6 +535,8 @@ def auction_instance(rng, T, m, nshards, rounds, sl=4, K=8, R=4, slots=None,
     ``_merge_shard_major``), random requester masks (or one random type per
     requester, as plan_bench parks them) and their slot tables. Returns
     (numpy twin inputs, tensors on ``device``)."""
+    import torch
+
     from adlb_tpu_torch.balancer import distributed as dist
 
     S = nshards * sl
@@ -419,6 +592,8 @@ def auction_cases():
 def check_auction(auction, report):
     """Phase 4: the auction kernel against its plain version and the numpy
     twin on every case. Returns the largest absolute difference seen."""
+    import torch
+
     from adlb_tpu_torch.balancer import distributed as dist
 
     err = 0
@@ -454,6 +629,8 @@ def auction_bound_ms(auction, gp, gg, rwc, lens, open0, rounds_run, m):
     the lengths, and assigned [T, C + 1] and the round count written once.
     Its operations (a few dozen per (type, rank) entry per round) take far
     less."""
+    import torch
+
     T, L = gp.shape
     C = rwc.shape[1]
     before = auction.auction_torch(gp, gg, rwc, lens, open0,
@@ -480,7 +657,10 @@ def time_device_plan(solver, auction, report):
     plain version on the same inputs, and one ``_device_plan`` (with its
     D2H) on the host clock. The kernel's result must equal the plain
     version's and the numpy twin's."""
+    import torch
+
     from adlb_tpu_torch.balancer import distributed as dist
+    from adlb_tpu_torch.balancer import solve
 
     T, C, D, m = solver.T, solver.C, solver.D, solver.m
     blocks = solver._dev_blocks
@@ -504,6 +684,18 @@ def time_device_plan(solver, auction, report):
         raise AssertionError("candidates on the card differ from the CPU's "
                              "at the 10k row")
 
+    # K3 as the candidates step calls it: the three int32 sort keys of
+    # every shard's task slots ([nshards, Sl*K]) to one int64 order; its
+    # bound counts the keys read once and the order written once. K4's
+    # counts the task blocks read once and the candidates written once.
+    tp, tt, rk = blocks
+    ns, Sl, K = tp.shape
+    live = (tp > NEG) & (tt >= 0)
+    k3_keys = (torch.where(live, tt, T).reshape(ns, -1),
+               -torch.clamp(tp, -10**9, 10**9).reshape(ns, -1),
+               (rk.reshape(ns, Sl, 1) * K + torch.arange(
+                   K, dtype=torch.int32, device=tp.device)).reshape(ns, -1))
+
     def plan_on_card():
         a, b = dist._shard_candidates(*blocks, T, D)
         p, g = dist._merge_candidates(a, b)
@@ -520,6 +712,12 @@ def time_device_plan(solver, auction, report):
         "candidates_ms": time_ms(lambda: dist._shard_candidates(*blocks, T, D),
                                  reps=50),
         "merge_ms": time_ms(lambda: dist._merge_candidates(cp, cg), reps=50),
+        "k3_ms": time_ms(lambda: solve._stable_argsort3(*k3_keys), reps=50),
+        "k3_bound_ms": (sum(k.numel() * 4 for k in k3_keys)
+                        + k3_keys[0].numel() * 8) / HBM_BYTES_PER_S * 1e3,
+        "k4_bound_ms": (sum(b.numel() * 4 for b in blocks)
+                        + (cp.numel() + cg.numel()) * 4)
+        / HBM_BYTES_PER_S * 1e3,
         "plain_ms": time_ms(lambda: auction.auction_torch(
             gp, gg, rwc, lens, open0, solver.rounds, m), reps=3, warmup=1),
         "bound_ms": auction_bound_ms(auction, gp, gg, rwc, lens, open0,
@@ -541,7 +739,10 @@ def time_device_plan(solver, auction, report):
            f"{out['commits']} commits; whole device plan "
            f"{out['device_plan_ms']:.4f} ms per call (back to back "
            f"{out['device_plan_ms_back_to_back']:.4f}): candidates "
-           f"{out['candidates_ms']:.4f} ms, merge {out['merge_ms']:.4f} ms; "
+           f"{out['candidates_ms']:.4f} ms (bound {out['k4_bound_ms']:.6f} "
+           f"ms, bytes), merge {out['merge_ms']:.4f} ms; K3 "
+           f"(_stable_argsort3 on [{ns}, {Sl * K}]) alone {out['k3_ms']:.4f} "
+           f"ms (bound {out['k3_bound_ms']:.6f} ms, bytes); "
            f"_device_plan with its D2H {out['device_plan_host_clock_ms']:.3f} "
            f"ms on the host clock; plain version {out['plain_ms']:.3f} ms; "
            f"bound {out['bound_ms']:.6f} ms (bytes); candidates on the "
@@ -654,6 +855,7 @@ def run_workloads(gs, report, device="cuda"):
     from adlb_tpu_torch.runtime.world import Config
     from adlb_tpu_torch.workloads import gfmc, hotspot, model, nq, sudoku, tsp
 
+    keep_solves()
     cfg = Config(balancer="tpu", device=device, solver_host_threshold=0,
                  balancer_max_tasks=64, balancer_max_requesters=16,
                  exhaust_check_interval=0.15)
@@ -683,29 +885,246 @@ def run_workloads(gs, report, device="cuda"):
     total_launches = total_solves = 0
     for name, run, ok, what in runs:
         gs.reset_counts()
-        solve.solve_counts.update(device=0, host=0)
+        solve.reset_counts()
         t0 = time.perf_counter()
         res = run()
         wall = time.perf_counter() - t0
-        launches, solves = gs.launches, dict(solve.solve_counts)
+        c = solve.planner_counts()
         if not ok(res):
             raise AssertionError(f"workload {name} returned a wrong answer: "
                                  f"{res}")
-        if launches != (device == "cuda") * solves["device"] \
-                or solves["host"]:
-            raise AssertionError(f"workload {name}: {launches} greedy-sweep "
-                                 f"launches for {solves} solves")
-        total_launches += launches
-        total_solves += solves["device"]
+        check_planned(f"workload {name}", c, device, need_solves=False)
+        total_launches += c["greedy_sweep_launches"]
+        total_solves += c["device_solves"]
         report(f"phase 6: {name}: {what(res)} (known answer) in {wall:.3f} s, "
-               f"{solves['device']} device solves = {launches} kernel "
-               f"launches")
+               f"{c['device_solves']} device solves = "
+               f"{c['greedy_sweep_launches']} kernel launches, "
+               f"{c['solves_checked']} == _host_greedy")
     if total_solves == 0:
         raise AssertionError("no workload ran a device solve")
     return total_launches, total_solves
 
 
+#: the C client of each native workload (built in phase 1)
+NATIVE_EXAMPLES = ("hotspot_c.c", "nq_c.c", "sudoku_c.c", "gfmc_c.c",
+                   "tsp_c.c")
+
+
+def build_native():
+    """The native plane from this checkout's sources: the server daemon,
+    the C client library and each workload's C client (g++ / gcc into
+    ``adlb_tpu_torch/_build/native/``). Returns the built paths."""
+    from adlb_tpu_torch.native import build, capi
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    return [build.ensure_serverd()] + [
+        capi.build_example(os.path.join(root, "examples", ex))
+        for ex in NATIVE_EXAMPLES]
+
+
+def run_native_plane(gs, report, device="cuda", n_tasks=20_000,
+                     clients=112, nservers=16, max_tasks=4096,
+                     max_requesters=512):
+    """Phase 7: the hotspot world on the all-native plane, planned by the
+    sidecar on the card (the arguments only shrink it for a rehearsal on
+    the CPU). The sidecar is this process's only planner, so the
+    process-wide counts are its own. Returns (result, wall, timer, planner
+    counts)."""
+    from adlb_tpu_torch.balancer import solve
+    from adlb_tpu_torch.runtime.world import Config
+    from adlb_tpu_torch.workloads import hotspot_native
+
+    cfg = Config(server_impl="native", balancer="tpu", device=device,
+                 solver_host_threshold=0, balancer_max_tasks=max_tasks,
+                 balancer_max_requesters=max_requesters)
+    keep_solves()
+    gs.reset_counts()
+    solve.reset_counts()
+    with PlannerTimer() as timer:
+        t0 = time.perf_counter()
+        res = hotspot_native.run(n_tasks=n_tasks, work_us=2000,
+                                 num_app_ranks=clients, nservers=nservers,
+                                 cfg=cfg, timeout=600)
+        wall = time.perf_counter() - t0
+    counts = solve.planner_counts()
+    if res.tasks != n_tasks:
+        raise AssertionError(f"hotspot_native: {res.tasks} of {n_tasks} "
+                             f"tasks done")
+    check_planned("native plane", counts, device)
+    report(f"phase 7: native plane, {nservers} C++ daemons x {clients} C "
+           f"clients, {n_tasks} tasks of 2 ms done once in {wall:.3f} s "
+           f"wall ({n_tasks / wall:.1f} units/s on the wall clock; the "
+           f"probe's makespan {res.elapsed:.3f} s, {res.tasks_per_sec:.1f} "
+           f"tasks/s, idle {res.idle_pct:.1f}%, wait {res.wait_pct:.1f}%); "
+           f"device solves {counts['device_solves']} ({max_tasks * nservers}"
+           f"x{max_requesters * nservers}), host solves "
+           f"{counts['host_solves']}, kernel launches "
+           f"{counts['greedy_sweep_launches']}, by route "
+           f"{gs.route_launches()}")
+    report(f"phase 7: sidecar {timer.text(wall)}; {counts['solves_checked']} "
+           f"kept solves == _host_greedy")
+    return res, wall, timer, counts
+
+
+def run_native_workloads(gs, report, device="cuda"):
+    """Phase 7, second part: the five native known-answer workloads at their
+    default sizes with the sidecar on the card. Returns the kernel launches
+    and device solves of all runs."""
+    from adlb_tpu_torch.balancer import solve
+    from adlb_tpu_torch.runtime.world import Config
+    from adlb_tpu_torch.workloads import (
+        gfmc_native,
+        hotspot_native,
+        nq_native,
+        sudoku_native,
+        tsp_native,
+    )
+
+    keep_solves()
+    cfg = Config(balancer="tpu", device=device, solver_host_threshold=0,
+                 exhaust_check_interval=0.15)
+    runs = (
+        ("nq_native", lambda: nq_native.run(cfg=cfg),
+         lambda r: r.solutions == r.expected,
+         lambda r: f"{r.solutions} solutions"),
+        ("sudoku_native", lambda: sudoku_native.run(cfg=cfg),
+         lambda r: r.valid, lambda r: f"{r.solved} solved, valid"),
+        ("gfmc_native", lambda: gfmc_native.run(cfg=cfg), lambda r: r.ok,
+         lambda r: f"counts {r.counts}"),
+        ("tsp_native", lambda: tsp_native.run(cfg=cfg),
+         lambda r: r.optimum is not None and r.best == r.optimum,
+         lambda r: f"tour length {r.best}"),
+        ("hotspot_native", lambda: hotspot_native.run(cfg=cfg),
+         lambda r: r.tasks == 2000,
+         lambda r: f"{r.tasks} tokens, {r.tasks_per_sec:.1f} tasks/s"),
+    )
+    total_launches = total_solves = 0
+    for name, run, ok, what in runs:
+        gs.reset_counts()
+        solve.reset_counts()
+        t0 = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t0
+        c = solve.planner_counts()
+        if not ok(res):
+            raise AssertionError(f"{name} returned a wrong answer: {res}")
+        check_planned(name, c, device, need_solves=False)
+        total_launches += c["greedy_sweep_launches"]
+        total_solves += c["device_solves"]
+        report(f"phase 7: {name}: {what(res)} (known answer) in {wall:.3f} "
+               f"s, {c['device_solves']} device solves = "
+               f"{c['greedy_sweep_launches']} kernel launches, "
+               f"{c['solves_checked']} == _host_greedy")
+    if total_solves == 0:
+        raise AssertionError("no native workload ran a device solve")
+    return total_launches, total_solves
+
+
+def run_process_world(report, device="cuda", nunits=5_000, napps=32,
+                      nservers=8, max_tasks=4096, max_requesters=512):
+    """Phase 8: phase 3's app in a ``spawn_world`` process world of Python
+    servers; the master is a child that plans on the card (started without
+    fork) and holds every CHECK_EVERY-th solve against ``_host_greedy``
+    (``ADLB_CHECK_SOLVES`` in its environment) after the world, before it
+    reports. Returns (wall, the master's planner counts)."""
+    from adlb_tpu_torch.runtime.transport_shm import resolve_fabric
+    from adlb_tpu_torch.runtime.transport_tcp import (
+        resolve_start_method,
+        spawn_world,
+    )
+
+    cfg = main_path_config(device, max_tasks, max_requesters)
+    keep_solves()
+    t0 = time.perf_counter()
+    res = spawn_world(napps, nservers, MAIN_TYPES + (MAIN_ANSWER,),
+                      functools.partial(main_path_app, nunits=nunits),
+                      cfg=cfg, timeout=600)
+    wall = time.perf_counter() - t0
+    check_main_path(res, napps, nunits)
+    if list(res.planner) != [napps]:  # the master: the first server rank
+        raise AssertionError(f"process world: planners {res.planner}")
+    counts = res.planner[napps]
+    check_planned("process world's master", counts, device)
+    report(f"phase 8: spawn_world {napps} apps x {nservers} Python servers "
+           f"({resolve_fabric(cfg)} fabric, ranks started with "
+           f"{resolve_start_method(cfg, None)!r}), {nunits} units consumed "
+           f"once in {wall:.3f} s ({nunits / wall:.1f} units/s); the master "
+           f"child's planning rounds {counts['rounds']}, "
+           f"{counts['round_s']:.3f} s in all (mean "
+           f"{1e3 * counts['round_s'] / max(counts['rounds'], 1):.3f} ms); "
+           f"device solves {counts['device_solves']} "
+           f"({max_tasks * nservers}x{max_requesters * nservers}), host "
+           f"solves {counts['host_solves']}, kernel launches "
+           f"{counts['greedy_sweep_launches']}; {counts['solves_checked']} "
+           f"of the master's solves == _host_greedy")
+    return wall, counts
+
+
+def run_launchers(report, device="cuda", n=10, cutoff=3, apps_per_host=4):
+    """Phase 9: two launchers on this host split one world of native
+    servers, the sidecar on the card in the master's launcher, ``nq_c`` as
+    the app; the sidecar holds every solve against ``_host_greedy``.
+    Returns the master launcher's planner counts."""
+    from adlb_tpu_torch.native.capi import build_example
+    from adlb_tpu_torch.workloads.nq import KNOWN_SOLUTIONS
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    exe = build_example(os.path.join(root, "examples", "nq_c.c"))
+    napps = 2 * apps_per_host
+    env = dict(os.environ, ADLB_NQ_N=str(n), ADLB_NQ_CUTOFF=str(cutoff),
+               ADLB_PUT_ROUTING="home", ADLB_CHECK_SOLVES="1",
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    hosts = [f"0-{apps_per_host - 1},{napps}",
+             f"{apps_per_host}-{napps - 1},{napps + 1}"]
+    with tempfile.TemporaryDirectory() as rdv:
+        common = [sys.executable, "-m", "adlb_tpu_torch.runtime.launch",
+                  "--rendezvous", rdv, "--nranks", str(napps + 2),
+                  "--nservers", "2", "--types", "1", "--server-impl",
+                  "native", "--balancer", "tpu", "--device", device,
+                  "--solver-host-threshold", "0", "--timeout", "300"]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(common + ["--ranks", ranks, exe], env=env,
+                                  cwd=root, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for ranks in hosts]
+        try:
+            outs = [p.communicate(timeout=400) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"launcher exited {p.returncode}:\n{out}\n"
+                                 f"{err[-4000:]}")
+    solutions = sum(int(v) for out, _ in outs
+                    for v in re.findall(r"solutions=(\d+)", out))
+    found = re.findall(r"\[adlb_launch\] planner (\{.*\})", outs[0][1])
+    counts = json.loads(found[-1]) if found else None
+    if solutions != KNOWN_SOLUTIONS[n]:
+        raise AssertionError(f"nq({n}) over two launchers: {solutions} "
+                             f"solutions, want {KNOWN_SOLUTIONS[n]}")
+    if counts is None:
+        raise AssertionError("launchers: the master launcher printed no "
+                             "planner counts")
+    check_planned("master launcher's sidecar", counts, device)
+    if counts["solves_checked"] != counts["device_solves"]:
+        raise AssertionError(f"launchers: not every solve checked: {counts}")
+    report(f"phase 9: two launchers, {napps} nq_c clients + 2 C++ daemons, "
+           f"the sidecar in the master's launcher: nq({n}) = {solutions} "
+           f"(known answer) in {wall:.3f} s; device solves "
+           f"{counts['device_solves']}, host solves {counts['host_solves']}, "
+           f"kernel launches {counts['greedy_sweep_launches']}, "
+           f"{counts['solves_checked']} == _host_greedy")
+    return counts
+
+
 def main() -> int:
+    import torch
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -720,10 +1139,21 @@ def main() -> int:
 
     from adlb_tpu_torch.balancer import auction, cuda_build
 
+    # the native plane (g++ / gcc) builds beside the kernels (nvcc)
     t0 = time.perf_counter()
+    native = {}
+    native_thread = threading.Thread(
+        target=lambda: native.update(paths=build_native()), daemon=True)
+    native_thread.start()
     cuda_build.build_all([gs.SOURCE, auction.SOURCE])  # one nvcc each, together
     built = [gs.build(), auction.build()]
     report(f"phase 1: built {', '.join(so.name for so in built)} in "
+           f"{time.perf_counter() - t0:.2f} s")
+    native_thread.join()
+    if "paths" not in native:
+        raise AssertionError("the native plane did not build")
+    report(f"phase 1: built the native plane "
+           f"({', '.join(os.path.basename(p) for p in native['paths'])}) in "
            f"{time.perf_counter() - t0:.2f} s")
     for log in (gs.build_log, auction.build_log):
         for ln in log.splitlines():
@@ -732,56 +1162,29 @@ def main() -> int:
 
     by_case, max_err = check_kernel(gs, solve._host_greedy, report)
 
-    # host-clock time of each device solve in the world (numpy in, numpy
-    # out) and its split: hand-off (numpy copies into the pinned buffer and
-    # the H2D enqueue), sort + launch + D2H enqueue, wait for the result;
-    # every eighth solve's inputs and result are kept for a check afterwards
-    solve_s, splits, sampled = [], [], []
-    untimed = solve.AssignmentSolver._device_solve
-
-    def timed(self, *arrays):
-        t = time.perf_counter()
-        out = untimed(self, *arrays)
-        solve_s.append(time.perf_counter() - t)
-        splits.append(self.handoff.split)
-        if len(solve_s) % 8 == 1:
-            sampled.append(([np.array(a) for a in arrays], out.copy()))
-        return out
-
-    def split_text(rows) -> str:
-        med = [1e3 * statistics.median(col) for col in zip(*rows)]
-        return (f"hand-off {med[0]:.3f} ms, sort + launch enqueue "
-                f"{med[1]:.3f} ms, wait for the result {med[2]:.3f} ms")
-
-    solve.AssignmentSolver._device_solve = timed
+    keep_solves()
     gs.reset_counts()
     auction.launches = 0
-    solve.solve_counts.update(device=0, host=0)
+    solve.reset_counts()
     nunits = 10_000
-    try:
+    with PlannerTimer() as main_timer:
         wall = run_main_path(nunits=nunits)
-    finally:
-        solve.AssignmentSolver._device_solve = untimed
-    launches = gs.launches
     route_launches = gs.route_launches()
-    counts = dict(solve.solve_counts)
+    counts = solve.planner_counts()
+    launches = counts["greedy_sweep_launches"]
     report(f"phase 3: world 64 apps x 16 servers, {nunits} units consumed "
            f"once in {wall:.3f} s ({nunits / wall:.1f} units/s); device "
-           f"solves {counts['device']}, host solves {counts['host']}, "
-           f"kernel launches {launches}, by route {route_launches}")
-    if solve_s:
-        report(f"phase 3: device solves 65536x8192 took "
-               f"{sum(solve_s):.3f} s in all ({100 * sum(solve_s) / wall:.1f}% "
-               f"of the world's wall time), median "
-               f"{1e3 * statistics.median(solve_s):.3f} ms, max "
-               f"{1e3 * max(solve_s):.3f} ms each; median split: "
-               f"{split_text(splits)}")
-    wrong = sum(not np.array_equal(out, solve._host_greedy(*arrays))
-                for arrays, out in sampled)
-    report(f"phase 3: {len(sampled)} of the world's device solves held "
-           f"against _host_greedy: {wrong} differ")
-    if wrong:
-        raise AssertionError(f"{wrong} world solves differ from _host_greedy")
+           f"solves {counts['device_solves']}, host solves "
+           f"{counts['host_solves']}, kernel launches {launches}, by route "
+           f"{route_launches}")
+    report(f"phase 3: {main_timer.text(wall)}")
+    report(f"phase 3: {counts['solves_checked']} of the world's device "
+           f"solves held against _host_greedy: {counts['solves_wrong']} "
+           f"differ")
+    check_planned("main path", counts)
+    if sum(route_launches.values()) != launches:
+        raise AssertionError(f"main path: launches by route {route_launches}"
+                             f" for {launches} launches")
     # the same solve (numpy in, numpy out) with no world running: the
     # yardstick for what the world's solves spend waiting on the host
     alone = solve.AssignmentSolver(types=(1, 2, 3, 4), max_tasks=4096,
@@ -800,12 +1203,6 @@ def main() -> int:
     report(f"phase 3: the same 65536x8192 device solve with no world "
            f"running: median {1e3 * statistics.median(alone_s[1:]):.3f} ms "
            f"on the host clock; median split: {split_text(alone_splits[1:])}")
-    if launches == 0 or counts["host"] != 0 \
-            or launches != counts["device"] \
-            or sum(route_launches.values()) != launches:
-        raise AssertionError(f"main path did not run one kernel launch per "
-                             f"device solve: launches={launches} "
-                             f"routes={route_launches} counts={counts}")
 
     auction_err = check_auction(auction, report)
     t0 = time.perf_counter()
@@ -819,6 +1216,21 @@ def main() -> int:
     work_launches, work_solves = run_workloads(gs, report)
     report(f"phase 6: {work_solves} device solves, {work_launches} "
            f"greedy-sweep launches over the six workloads")
+
+    res7, wall7, timer7, counts7 = run_native_plane(gs, report)
+    report(f"phase 7 beside phase 3 (same run): units/s on the wall clock "
+           f"{20_000 / wall7:.1f} (native plane, sidecar) against "
+           f"{nunits / wall:.1f} (in-process world); planning rounds "
+           f"{len(timer7.round_s)} against {len(main_timer.round_s)}, median "
+           f"{1e3 * statistics.median(timer7.round_s):.3f} against "
+           f"{1e3 * statistics.median(main_timer.round_s):.3f} ms; median "
+           f"device solve {1e3 * statistics.median(timer7.solve_s):.3f} "
+           f"against {1e3 * statistics.median(main_timer.solve_s):.3f} ms "
+           f"(sidecar: {split_text(timer7.splits)}; in-process: "
+           f"{split_text(main_timer.splits)})")
+    native_launches, native_solves = run_native_workloads(gs, report)
+    _, counts8 = run_process_world(report)
+    counts9 = run_launchers(report)
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
@@ -844,6 +1256,18 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "launches_by_route": route_launches,
+        "launches_by_phase": {
+            "3_in_process_world": launches,
+            "6_workloads": work_launches,
+            "7_native_plane_sidecar": counts7["greedy_sweep_launches"],
+            "7_native_workloads": native_launches,
+            "8_spawned_master": counts8["greedy_sweep_launches"],
+            "9_launcher_sidecar": counts9["greedy_sweep_launches"]},
+        "solves_checked_by_phase": {
+            "3_in_process_world": counts["solves_checked"],
+            "7_native_plane_sidecar": counts7["solves_checked"],
+            "8_spawned_master": counts8["solves_checked"],
+            "9_launcher_sidecar": counts9["solves_checked"]},
         "by_case_65536x8192": by_case,
     }, {
         "name": "auction",

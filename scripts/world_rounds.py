@@ -4,6 +4,14 @@ time, the device solve's share of it, and the plan pairs per round.
 
     python3 scripts/world_rounds.py [--root DIR] [--worlds N]
                                     [--min-gap S] [--check]
+                                    [--process-world [--units N]
+                                     [--fabric shm|tcp]]
+
+``--process-world`` runs phase 8's world instead (``spawn_world``, 32 apps
+x 8 Python servers, ``--units`` units, 5,000 by default, over the
+``--fabric`` the Config resolves by default; the master is a child process
+that plans on the card) and reports the master's rounds and device solves
+as it sends them back (``WorldResult.planner``).
 
 Imports ``chip_smoke.run_main_path`` and ``adlb_tpu_torch`` from the
 checkout under ``--root`` (default: this one), so an unpacked older
@@ -32,6 +40,12 @@ def main() -> int:
                     help="balancer_min_gap in seconds (default: Config's)")
     ap.add_argument("--check", action="store_true",
                     help="hold every device solve against _host_greedy")
+    ap.add_argument("--process-world", action="store_true",
+                    help="run phase 8's spawn_world instead of phase 3's")
+    ap.add_argument("--units", type=int, default=5_000,
+                    help="units of the process world")
+    ap.add_argument("--fabric", choices=["shm", "tcp"], default=None,
+                    help="fabric of the process world (default: Config's)")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import torch
@@ -67,13 +81,32 @@ def main() -> int:
         return out
 
     AssignmentSolver._device_solve = kept
-    if args.min_gap is not None:
-        run_world = adlb_tpu_torch.run_world
 
-        def paced(*a, cfg, **k):
-            cfg.balancer_min_gap = args.min_gap
+    def configured(run_world):
+        def run(*a, cfg, **k):
+            if args.min_gap is not None:
+                cfg.balancer_min_gap = args.min_gap
+            if args.fabric is not None:
+                cfg.fabric = args.fabric
             return run_world(*a, cfg=cfg, **k)
-        adlb_tpu_torch.run_world = paced
+        return run
+    adlb_tpu_torch.run_world = configured(adlb_tpu_torch.run_world)
+    if args.process_world:
+        from adlb_tpu_torch.runtime import transport_tcp
+
+        transport_tcp.spawn_world = configured(transport_tcp.spawn_world)
+        for _ in range(args.worlds):
+            wall, counts = chip_smoke.run_process_world(print,
+                                                        nunits=args.units)
+            print(json.dumps({
+                "root": str(Path(args.root).resolve()),
+                "card": torch.cuda.get_device_name(0),
+                "world": "process", "units": args.units,
+                "units_per_s": args.units / wall, "wall_s": wall,
+                "min_gap_s": args.min_gap, "fabric": args.fabric,
+                "round_ms_mean": 1e3 * counts["round_s"]
+                / max(counts["rounds"], 1), **counts}), flush=True)
+        return 0
     nunits = 10_000
     for _ in range(args.worlds):
         rounds.clear()

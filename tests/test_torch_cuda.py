@@ -11,11 +11,20 @@ multi-job type axis), one launch per device plan, the sharded solver's
 device tier equal to its host tier over churn rounds, and a failed build
 or launch raises.
 
+Process worlds and the native plane: ``spawn_world(start_method="fork")``
+with a master that plans on the card raises before any process starts; a
+spawned master plans on the card, one launch per device solve, reported
+back to the parent; the sidecar's solves on the card equal ``_host_greedy``.
+
 They skip without a CUDA device. This file imports neither JAX nor the
 JAX package, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import functools
+import multiprocessing
+import shutil
 
 import numpy as np
 import pytest
@@ -261,3 +270,64 @@ def test_sharded_device_tier_equals_host_tier_over_churn(card):
     assert [r["rounds_equal_to_host_tier"] for r in out["rows"]] == [8, 8]
     assert all(r["pairs_total"] > 0 for r in out["rows"])
     assert auction.launches - before == sum(plans)
+
+
+def _planned_cfg(**kw):
+    from adlb_tpu_torch.runtime.world import Config
+
+    return Config(balancer="tpu", device="cuda", solver_host_threshold=0,
+                  exhaust_check_interval=0.2, **kw)
+
+
+@pytest.mark.cuda
+def test_spawn_world_refuses_fork_with_a_card_planner(card):
+    from adlb_tpu_torch.runtime.transport_tcp import spawn_world
+    from adlb_tpu_torch.workloads import nq
+
+    before = multiprocessing.active_children()
+    with pytest.raises(ValueError, match="fork"):
+        spawn_world(3, 2, [nq.WORK],
+                    functools.partial(nq.app_main, n=6, max_depth_for_puts=2),
+                    cfg=_planned_cfg(), start_method="fork", timeout=60.0)
+    assert multiprocessing.active_children() == before
+
+
+@pytest.mark.cuda
+def test_spawned_master_plans_on_the_card(card, monkeypatch):
+    """The default start of a card-planning world is "spawn"; the master
+    child plans on the card, one kernel launch per device solve, each
+    equal to the numpy twin's."""
+    from adlb_tpu_torch.runtime.transport_tcp import spawn_world
+    from adlb_tpu_torch.workloads import nq
+
+    monkeypatch.setenv("ADLB_CHECK_SOLVES", "1")
+    res = spawn_world(6, 2, [nq.WORK],
+                      functools.partial(nq.app_main, n=8, max_depth_for_puts=3),
+                      cfg=_planned_cfg(put_routing="home"), timeout=300.0)
+    assert sum(s for s, _, _ in res.app_results.values()) \
+        == nq.KNOWN_SOLUTIONS[8]
+    counts = res.planner[6]
+    assert counts["device_solves"] > 0 and counts["host_solves"] == 0
+    assert counts["greedy_sweep_launches"] == counts["device_solves"] \
+        == counts["solves_checked"]
+    assert counts["solves_wrong"] == 0
+
+
+@pytest.mark.cuda
+def test_sidecar_solves_on_the_card_equal_host_greedy(card, monkeypatch):
+    if shutil.which("g++") is None or shutil.which("gcc") is None:
+        pytest.skip("no C/C++ toolchain")
+    from adlb_tpu_torch.balancer import solve
+    from adlb_tpu_torch.workloads import hotspot_native
+
+    monkeypatch.setattr(solve, "check_every", 1)
+    greedy_sweep.reset_counts()
+    solve.reset_counts()
+    res = hotspot_native.run(n_tasks=600, work_us=1000, num_app_ranks=12,
+                             nservers=4, cfg=_planned_cfg(), timeout=300.0)
+    assert res.tasks == 600
+    counts = solve.planner_counts()
+    assert counts["device_solves"] > 0 and counts["host_solves"] == 0
+    assert counts["greedy_sweep_launches"] == counts["device_solves"] \
+        == counts["solves_checked"]
+    assert counts["solves_wrong"] == 0

@@ -133,12 +133,61 @@ def test_port_world_imports_no_jax():
 
 def test_no_port_file_imports_jax_or_the_jax_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|adlb_tpu)(\.|\s|$)", re.M)
+    # a path into the JAX package's native plane (its sources, or the
+    # binaries built there), written with / or as a module path
+    native = re.compile(r"adlb_tpu[/.]native")
     files = sorted((ROOT / "adlb_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 30
-    for f in files:
-        hits = pat.findall(f.read_text())
-        assert not hits, (f, hits)
+    assert len(files) > 45
+    sources = [f for f in (ROOT / "adlb_tpu_torch").rglob("*")
+               if f.suffix in (".cpp", ".hpp", ".c", ".cu")]
+    assert len(sources) >= 8
+    for f in files + sources:
+        text = f.read_text()
+        assert not pat.findall(text), f
+        assert not native.findall(text), f
+
+
+def test_native_world_touches_nothing_of_the_jax_package():
+    """A native world of the port (C++ daemons, C clients, the sidecar, the
+    compiled codec and queue core) in a fresh interpreter: no file under
+    ``adlb_tpu/`` is opened, loaded or executed, and neither JAX nor the
+    JAX package is imported."""
+    code = (
+        "import builtins, ctypes, subprocess, sys\n"
+        "touched = []\n"
+        "_open, _popen, _cdll = builtins.open, subprocess.Popen.__init__, "
+        "ctypes.CDLL.__init__\n"
+        "def spy_open(f, *a, **k):\n"
+        "    touched.append(str(f)); return _open(f, *a, **k)\n"
+        "def spy_popen(self, args, *a, **k):\n"
+        "    touched.extend(map(str, args if isinstance(args, list) "
+        "else [args])); return _popen(self, args, *a, **k)\n"
+        "def spy_cdll(self, name, *a, **k):\n"
+        "    touched.append(str(name)); return _cdll(self, name, *a, **k)\n"
+        "builtins.open, subprocess.Popen.__init__ = spy_open, spy_popen\n"
+        "ctypes.CDLL.__init__ = spy_cdll\n"
+        "from adlb_tpu_torch.native import ensure_built\n"
+        "from adlb_tpu_torch.runtime.codec import select_codec\n"
+        "from adlb_tpu_torch.runtime.world import Config\n"
+        "from adlb_tpu_torch.workloads import nq_native\n"
+        "assert ensure_built() is not None and select_codec('c') == 'c'\n"
+        "r = nq_native.run(n=6, num_app_ranks=3, nservers=2, cfg=Config(\n"
+        "    balancer='tpu', device='cpu', solver_host_threshold=0,\n"
+        "    exhaust_check_interval=0.2), timeout=60)\n"
+        "assert r.solutions == 4, r\n"
+        "maps = _open('/proc/self/maps').read()\n"
+        "bad = [t for t in touched + maps.split() if '/adlb_tpu/' in t]\n"
+        "bad += [m for m in sys.modules if m == 'jax' or m.startswith("
+        "'jax.')\n"
+        "        or m == 'adlb_tpu' or m.startswith('adlb_tpu.')]\n"
+        "print('TOUCHED', len(touched), 'BAD', bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert int(out.stdout.split()[1]) > 3, out.stdout
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
@@ -152,8 +201,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"native_queues": "on"},
-    {"server_impl": "native"},
+    {"restore_path": "checkpoint"},
+    {"on_server_failure": "failover"},
     {"spill_dir": "spill"},
     {"wal_dir": "wal"},
     {"ops_port": 0},
