@@ -7,10 +7,8 @@ NVIDIA H100: the greedy assignment sweep is a hand-written CUDA kernel
 (``csrc/greedy_sweep.cu``) with a plain PyTorch version for CPU tensors.
 
 The port keeps ``adlb_tpu``'s layout and module names, imports ``torch`` and
-never ``jax``, and imports nothing from ``adlb_tpu``. It is built one slice
-at a time; features whose modules are not ported yet raise
-``NotImplementedError`` (see ``Config`` and :mod:`adlb_tpu_torch.unported`).
-Device work runs on ``Config.device`` ("cuda" by default; "cpu" on request).
+never ``jax``, and imports nothing from ``adlb_tpu``. Device work runs on
+``Config.device`` ("cuda" by default; "cpu" on request).
 """
 
 from adlb_tpu_torch.types import (  # noqa: F401

@@ -239,12 +239,13 @@ class WorldResult:
     # InfoKey.QUARANTINED, same conservation contract as FAILOVER_LOST:
     # every unit is completed, re-executed, or counted here
     quarantined: int = 0
-    # process worlds (spawn_world): the planning process's solve counts,
-    # greedy-sweep launches and checked solves during the world
-    # (balancer.solve.planner_since) and its planning rounds ("rounds",
-    # "round_s": their host-clock seconds in all), keyed by the master
-    # server's rank, or by the sidecar's pseudo-rank (nranks) in native
-    # worlds
+    # every planner's solve counts, greedy-sweep launches and checked
+    # solves during the world and its planning rounds, keyed by the rank
+    # of the server that planned (Server.planner_report: the master, and
+    # a deputy that failover promoted), or by the sidecar's pseudo-rank
+    # (nranks) in native worlds. A process world's server checks its kept
+    # solves before it reports; an in-process world's are checked after
+    # the world, by balancer.solve.planner_counts
     planner: dict[int, dict] = dataclasses.field(default_factory=dict)
 
     def save_trace(self, path: str) -> None:
@@ -456,6 +457,7 @@ def run_world(
     errors: list[BaseException] = []
     casualties: list[int] = []
     server_casualties: list[int] = []
+    planner: dict[int, dict] = {}
     lock = threading.Lock()
 
     from adlb_tpu_torch.runtime.faults import maybe_wrap
@@ -504,6 +506,9 @@ def run_world(
         try:
             server.run()
             with lock:
+                report = server.planner_report()
+                if report is not None:
+                    planner[rank] = report
                 if server.died:
                     # fault-injected server death absorbed by
                     # on_server_failure="failover": the buddy took over;
@@ -577,6 +582,7 @@ def run_world(
             s.get(int(InfoKey.QUARANTINED), 0)
             for s in server_stats.values()
         )),
+        planner=planner,
     )
     if errors:
         raise errors[0]

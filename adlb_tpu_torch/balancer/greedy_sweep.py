@@ -48,9 +48,11 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "greedy_sweep.cu"
 #: the kernel's routes; the kernel writes route code i + 1 for ROUTES[i]
 ROUTES = ("partition", "classes", "sweep")
 
-#: kernel launches so far, counted on the host at each launch;
+#: kernel launches so far, counted on the host at each launch, under
+#: ``_count_lock`` (two planner threads may launch at once);
 #: chip_smoke.py zeroes it (with :func:`reset_counts`) around the main path
 launches = 0
+_count_lock = threading.Lock()
 
 _lib = None
 _lib_path = None
@@ -118,7 +120,8 @@ def route_launches() -> dict:
 def reset_counts() -> None:
     """Zero :data:`launches` and the kernel's per-route tally."""
     global launches
-    launches = 0
+    with _count_lock:
+        launches = 0
     if _lib is not None:
         torch.cuda.synchronize()
         _raise_on(_lib.adlb_greedy_sweep_reset_route_counts(),
@@ -180,6 +183,9 @@ class Workspace:
         self._sorted_ptrs = tuple(x.data_ptr() for x in self.sorted)
         self._out_ptrs = (self.out.data_ptr(),
                           self.scratch.data_ptr() if nbytes else None)
+        #: launches from this workspace (its solver's share of
+        #: :data:`launches`)
+        self.launches = 0
 
     def launch(self, task_type: int, req_mask: int, req_valid: int,
                stream: int) -> None:
@@ -190,7 +196,9 @@ class Workspace:
         _raise_on(_lib.adlb_greedy_sweep(
             *self._sorted_ptrs, task_type, req_mask, req_valid,
             *self._out_ptrs, *self.shape, stream), "greedy sweep launch")
-        launches += 1
+        with _count_lock:
+            launches += 1
+            self.launches += 1
 
     def run(self, task_prio, task_type: int, req_mask: int, req_valid: int,
             stream: int) -> None:

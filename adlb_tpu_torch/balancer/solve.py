@@ -22,6 +22,7 @@ which is the point: same semantics, global scope, O(1) staleness.
 from __future__ import annotations
 
 import os
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -39,25 +40,46 @@ _PRIO_CLIP = 10**9
 _I32MAX = 2**31 - 1
 
 #: solves by route across every solver of the process ("device": the
-#: kernel or its plain version on the CPU; "host": the numpy twin)
+#: kernel or its plain version on the CPU; "host": the numpy twin). An
+#: in-process world that loses its master runs two planner threads for up
+#: to a second, so the counts and the check tallies change under ``_lock``
 solve_counts = {"device": 0, "host": 0}
 
-#: every ``check_every``-th device solve of the process (the 1st, the
+#: every ``check_every``-th device solve of each solver (its 1st, its
 #: 1 + check_every-th, ...) keeps a copy of its inputs and result, and
 #: :func:`planner_counts` holds the kept ones against the numpy twin
 #: ``_host_greedy``, after the solves, off the planning loop's clock.
 #: 0 keeps none. A process world's ranks and a launcher read it from
 #: ``ADLB_CHECK_SOLVES`` in their environment.
 check_every = int(os.environ.get("ADLB_CHECK_SOLVES") or 0)
-_kept: list = []
+_kept: list = []  # (solver, inputs, result)
 _checks = {"checked": 0, "wrong": 0}
+_lock = threading.Lock()
 
 
 def reset_counts() -> None:
     """Zero the solve counts and the check tallies, drop the kept solves."""
-    solve_counts.update(device=0, host=0)
-    _checks.update(checked=0, wrong=0)
-    _kept.clear()
+    with _lock:
+        solve_counts.update(device=0, host=0)
+        _checks.update(checked=0, wrong=0)
+        _kept.clear()
+
+
+def check_kept() -> None:
+    """Hold every kept solve against ``_host_greedy``; the tallies go to
+    the process and to the solver that made it. A planning process runs
+    it before it reports, since its kept solves end with it."""
+    while True:
+        with _lock:
+            if not _kept:
+                return
+            solver, arrays, out = _kept.pop()
+        wrong = not np.array_equal(out, _host_greedy(*arrays))
+        with _lock:
+            _checks["checked"] += 1
+            _checks["wrong"] += wrong
+            solver.solves_checked += 1
+            solver.solves_wrong += wrong
 
 
 def planner_counts() -> dict:
@@ -65,15 +87,13 @@ def planner_counts() -> dict:
     solves checked (``solves_checked``) and found different from the numpy
     twin (``solves_wrong``): what the planning rank or sidecar of a process
     world reports back to its harness (``WorldResult.planner``)."""
-    while _kept:
-        arrays, out = _kept.pop()
-        _checks["checked"] += 1
-        _checks["wrong"] += not np.array_equal(out, _host_greedy(*arrays))
-    return {"device_solves": solve_counts["device"],
-            "host_solves": solve_counts["host"],
-            "greedy_sweep_launches": greedy_sweep.launches,
-            "solves_checked": _checks["checked"],
-            "solves_wrong": _checks["wrong"]}
+    check_kept()
+    with _lock:
+        return {"device_solves": solve_counts["device"],
+                "host_solves": solve_counts["host"],
+                "greedy_sweep_launches": greedy_sweep.launches,
+                "solves_checked": _checks["checked"],
+                "solves_wrong": _checks["wrong"]}
 
 
 def planner_since(before: dict, metrics) -> dict:
@@ -285,9 +305,16 @@ class AssignmentSolver:
         self.backend = backend
         self.solve_count = 0
         self.host_solve_count = 0
+        #: this solver's device solves, their (tasks, requesters) shapes,
+        #: and its kept ones found equal (``solves_checked``) or not
+        #: (``solves_wrong``) to the numpy twin by :func:`check_kept`
+        self.device_solve_count = 0
+        self.device_shapes: set = set()
+        self.solves_kept = self.solves_checked = self.solves_wrong = 0
         #: the card route's buffers, made at the first device solve and
         #: again when the packed shape changes
         self.handoff: Optional[CudaHandoff] = None
+        self._retired_launches = 0  # of the handoffs replaced so far
 
     def set_job_bias(self, job_weights: Optional[dict]) -> bool:
         """Install new fair-share biases for the dict-path packers (the
@@ -299,19 +326,50 @@ class AssignmentSolver:
         self.job_bias = bias
         return True
 
+    def planner_counts(self) -> dict:
+        """This solver's own counts, in :func:`planner_counts`' keys plus
+        ``solves_kept`` and ``device_shapes`` (the sorted [tasks,
+        requesters] shapes it solved at): what one planner did, where the
+        process-wide counts sum every planner of the process. The check
+        tallies are those of the :func:`check_kept` calls made so far."""
+        with _lock:
+            return {"device_solves": self.device_solve_count,
+                    "host_solves": self.host_solve_count,
+                    "greedy_sweep_launches": self.kernel_launches,
+                    "solves_kept": self.solves_kept,
+                    "solves_checked": self.solves_checked,
+                    "solves_wrong": self.solves_wrong,
+                    "device_shapes": sorted(
+                        list(s) for s in self.device_shapes)}
+
+    @property
+    def kernel_launches(self) -> int:
+        """Greedy-sweep kernel launches of this solver's device solves."""
+        return self._retired_launches + (
+            self.handoff.work.launches if self.handoff is not None else 0)
+
     def _device_solve(self, task_prio, task_type, req_mask, req_valid):
-        solve_counts["device"] += 1
+        with _lock:
+            solve_counts["device"] += 1
+            self.device_solve_count += 1
+            self.device_shapes.add((task_prio.shape[0], req_mask.shape[0]))
+            keep = (check_every
+                    and (self.device_solve_count - 1) % check_every == 0)
         arrays = (task_prio, task_type, req_mask, req_valid)
         if self.device.type == "cuda":
             shape = (task_prio.shape[0],) + req_mask.shape
             if self.handoff is None or self.handoff.shape != shape:
+                self._retired_launches = self.kernel_launches
                 self.handoff = CudaHandoff(*shape, self.device)
             out = self.handoff.solve(*arrays)
         else:
             inputs = solver_inputs_from_numpy(*arrays, self.device)
             out = greedy_sweep.greedy_assign_torch(*inputs).numpy()
-        if check_every and (solve_counts["device"] - 1) % check_every == 0:
-            _kept.append(([np.array(a) for a in arrays], out.copy()))
+        if keep:
+            with _lock:
+                self.solves_kept += 1
+                _kept.append((self, [np.array(a) for a in arrays],
+                              out.copy()))
         return out
 
     def solve(self, snapshots, world) -> list:
@@ -391,8 +449,9 @@ class AssignmentSolver:
             task_prio = np.asarray(prios, dtype=np.int32)
             task_type = np.asarray(ttypes, dtype=np.int32)
             assign = _host_greedy(task_prio, task_type, req_mask, req_valid)
-            self.host_solve_count += 1
-            solve_counts["host"] += 1
+            with _lock:
+                self.host_solve_count += 1
+                solve_counts["host"] += 1
         else:
             task_prio = np.full((S * K,), int(_NEG), dtype=np.int32)
             task_type = np.full((S * K,), -1, dtype=np.int32)
@@ -453,8 +512,9 @@ class AssignmentSolver:
             # compacted pre-pack of the dict path unnecessary: same
             # candidates, same stable order, same matching
             assign = _host_greedy(task_prio, task_type, req_mask, req_valid)
-            self.host_solve_count += 1
-            solve_counts["host"] += 1
+            with _lock:
+                self.host_solve_count += 1
+                solve_counts["host"] += 1
             if not (assign >= 0).any():
                 return []
         else:

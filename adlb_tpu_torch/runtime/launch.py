@@ -217,6 +217,20 @@ def write_rendezvous_file(path: str, addr_map: dict) -> None:
     os.replace(tmp, path)
 
 
+def planner_reports(sidecar, servers) -> list:
+    """What each planner of a launcher did, for the operator: the
+    sidecar's counts, and those of each Python server that planned (the
+    master, or a deputy that failover promoted, in a launcher that may
+    never have hosted the master), their kept solves checked first."""
+    reports = [] if sidecar is None else [sidecar[1].planner()]
+    if any(srv._solver is not None for srv in servers):
+        from adlb_tpu_torch.balancer.solve import check_kept
+
+        check_kept()
+    return reports + [r for r in (srv.planner_report() for srv in servers)
+                      if r is not None]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Launch this host's share of an adlb-tpu world."
@@ -391,6 +405,7 @@ def main(argv=None) -> int:
     )
     failures: list[str] = []
     threads: list[threading.Thread] = []
+    servers: list = []  # this launcher's Python servers
     server_eps = {}   # rank -> TcpEndpoint (python impl)
     daemons = {}      # rank -> Popen (native impl)
 
@@ -489,7 +504,9 @@ def main(argv=None) -> int:
             from adlb_tpu_torch.runtime.server import Server
 
             try:
-                Server(world, cfg, ep).run()
+                server = Server(world, cfg, ep)
+                servers.append(server)
+                server.run()
             except Exception as e:  # noqa: BLE001
                 failures.append(f"server rank {rank}: {e!r}")
             finally:
@@ -593,15 +610,10 @@ def main(argv=None) -> int:
     # at create time by the next incarnation anyway).
     if world.master_server_rank in my_ranks:
         cleanup_world(shm_key)
-        if args.balancer == "tpu":
-            # this launcher planned (the master's planner or the sidecar):
-            # its solve counts and kernel launches, for the operator
-            import json
+    for counts in planner_reports(sidecar, servers):
+        import json
 
-            from adlb_tpu_torch.balancer.solve import planner_counts
-
-            print(f"[adlb_launch] planner {json.dumps(planner_counts())}",
-                  file=sys.stderr)
+        print(f"[adlb_launch] planner {json.dumps(counts)}", file=sys.stderr)
     for f in failures:
         print(f"[adlb_launch] {f}", file=sys.stderr)
     return rc_final if not failures else (rc_final or 1)

@@ -33,7 +33,6 @@ import time
 from collections import deque
 from typing import Optional
 
-from adlb_tpu_torch.unported import require
 from adlb_tpu_torch.obs import profile
 from adlb_tpu_torch.obs.flight import FlightRecorder
 from adlb_tpu_torch.obs.journey import TAIL_MIN_COUNT, JourneyRecorder, trace_fields
@@ -108,10 +107,15 @@ class _BalancerWorker(threading.Thread):
         """A planner failure ends the world. In tpu mode the balancer is
         the only cross-server matching mechanism, and planning on numpy
         instead would hide a kernel that fails to build or launch: record
-        the error (Server.run raises it) and abort every rank."""
+        the error (Server.run raises it) and abort every rank. The one
+        exception is a master that failover has written off (``died``):
+        its deputy plans now, and the casualty's straggler round must not
+        end the world the deputy is saving."""
         s = self.server
-        s.balancer_error = e
         s.flight.record(f"balancer failed: {e!r}")
+        if s.died:
+            return
+        s.balancer_error = e
         if s._abort_event is not None:
             s._abort_event.set()  # the reactor and every client see it
         else:
@@ -303,7 +307,7 @@ class Server:
         # fault back in at delivery time — see _maybe_spill/_unspill
         self.spill = None
         if cfg.spill_dir is not None:
-            SpillStore = require("runtime.spill").SpillStore
+            from adlb_tpu_torch.runtime.spill import SpillStore
 
             self.spill = SpillStore(cfg.spill_dir, self.rank)
         # lease per pinned unit (owner rank, lease id, grant time): under
@@ -356,7 +360,7 @@ class Server:
         # more — see _rebootstrap_repl)
         self.mirrors: dict[int, "object"] = {}
         if self._failover:
-            replica = require("runtime.replica")
+            from adlb_tpu_torch.runtime import replica
 
             self.repl = replica.ReplicationLog(world.ring_next(self.rank))
         # ---- master failover (the brain survives its own death) ----
@@ -378,7 +382,7 @@ class Server:
         # makes their entries durable (write-ahead across process death)
         self.wal = None
         if cfg.wal_dir:
-            walmod = require("runtime.wal")
+            from adlb_tpu_torch.runtime import wal as walmod
 
             self.wal = walmod.WriteAheadLog(
                 cfg.wal_dir, self.rank, world,
@@ -527,6 +531,17 @@ class Server:
         # a rank-death sweep treats them as delivered (the payload may
         # already be at the requester — re-enqueueing could run it twice)
         self._relay_inflight: dict[int, int] = {}  # seqno -> for_rank
+        # the requester's side of the same handoffs: this server's latest
+        # resolutions (seqno, for_rank, delivered) of each holder's
+        # payload-carrying responses. The holder's consume or unpin may
+        # not have reached its buddy's mirror when it dies, and the buddy
+        # would then keep the unit pinned for a rank that already ran it;
+        # so when a holder dies they are sent again, rerouted to the buddy
+        self._relay_resolved: dict[int, deque] = {}
+        # rerouted resolutions (SS_DELIVERED / SS_UNRESERVE stamped
+        # fo_from) for a server whose mirror this one has not promoted
+        # yet: held until _promote has adopted its units
+        self._held_resolutions: dict[int, list] = {}
         # ranks whose get_work_stream reported an empty bank (FA_STREAM_IDLE):
         # only then do their prefetch-flagged reserves count as parked for
         # exhaustion voting; any delivery to the rank clears the mark
@@ -779,7 +794,7 @@ class Server:
         self._incidents: deque = deque(maxlen=32)
         self._m_alerts_firing = self.metrics.gauge("alerts_firing")
         if self._obs_sync_armed and self.is_master and cfg.slo:
-            SloEngine = require("obs.slo").SloEngine
+            from adlb_tpu_torch.obs.slo import SloEngine
 
             eng = SloEngine(cfg.slo_eval_interval
                             or cfg.obs_sync_interval)
@@ -795,7 +810,7 @@ class Server:
         self._controller = None
         self._next_control = 0.0  # cadence gate (control_interval)
         if self._obs_sync_armed and self.is_master and cfg.control:
-            Controller = require("control").Controller
+            from adlb_tpu_torch.control import Controller
 
             self._controller = Controller(
                 {
@@ -957,7 +972,7 @@ class Server:
         )
         try:
             if self.cfg.ops_port is not None and self.is_master:
-                maybe_start = require("obs.ops_server").maybe_start
+                from adlb_tpu_torch.obs.ops_server import maybe_start
 
                 self.ops = maybe_start(self, self.cfg)
                 if self.ops is not None:
@@ -1183,6 +1198,12 @@ class Server:
             handler(m)
 
     def _periodic(self, now: float, interval: float) -> None:
+        plan = getattr(self.ep, "plan", None)
+        if self._failover and getattr(plan, "disconnected", False):
+            # our own connectivity died (fault-injected) on a send whose
+            # failure was absorbed: a server with nothing more to send
+            # would otherwise never learn it, and its world never end
+            raise OSError(f"server {self.rank}: own connectivity lost")
         if self._ctl_inbox:
             # ops-thread control requests (POST /jobs): serviced on the
             # reactor thread, verdicts handed back via their events
@@ -1818,7 +1839,7 @@ class Server:
         adds its contribution and forwards; back at the master the sum is
         printed as STAT_APS chunks (reference ``src/adlb.c:712-753,
         2391-2465``)."""
-        pstats = require("runtime.stats")
+        from adlb_tpu_torch.runtime import stats as pstats
 
         if self.no_more_work or self.done_by_exhaustion:
             return  # ring peers may already be shutting down
@@ -1847,7 +1868,7 @@ class Server:
             pass
 
     def _on_periodic_stats(self, m: Msg) -> None:
-        pstats = require("runtime.stats")
+        from adlb_tpu_torch.runtime import stats as pstats
 
         token = m.token
         if self.is_master:
@@ -2059,7 +2080,7 @@ class Server:
         ring /incidents serves. Evidence capture must never take the
         reactor down — a failed bundle is a flight note, not a crash."""
         from adlb_tpu_torch.obs import flight as _flight
-        build_incident = require("obs.slo").build_incident
+        from adlb_tpu_torch.obs.slo import build_incident
 
         try:
             doc = build_incident(self, self._slo_engine, transition, now)
@@ -2250,7 +2271,7 @@ class Server:
     # unit count. Restore happens at server init from the same shards.
 
     def _restore_from_checkpoint(self, prefix: str) -> None:
-        checkpoint = require("runtime.checkpoint")
+        from adlb_tpu_torch.runtime import checkpoint
 
         stray = set(checkpoint.existing_shard_ranks(prefix)) - set(
             self.world.server_ranks
@@ -2290,7 +2311,7 @@ class Server:
         )
 
     def _write_checkpoint_shard(self, prefix: str) -> int:
-        checkpoint = require("runtime.checkpoint")
+        from adlb_tpu_torch.runtime import checkpoint
 
         self._spill_fault_in_all()  # shards serialize payload bytes
         return checkpoint.save_shard(prefix, self.rank, self.wq.units(),
@@ -3306,6 +3327,10 @@ class Server:
                     msg(Tag.SS_UNRESERVE, self.rank, seqno=m.seqno,
                         for_rank=app),
                 )
+                if self._failover:
+                    self._relay_resolved.setdefault(
+                        m.src, deque(maxlen=1024)
+                    ).append((m.seqno, app, False))
                 return
             if m.target_rank >= 0 and app == m.target_rank:
                 self.tq.remove(app, m.work_type, m.src)
@@ -3368,6 +3393,10 @@ class Server:
                     else msg(Tag.SS_UNRESERVE, self.rank, seqno=m.seqno,
                              for_rank=app),
                 )
+                if self._failover:
+                    self._relay_resolved.setdefault(
+                        m.src, deque(maxlen=1024)
+                    ).append((m.seqno, app, bool(delivered)))
                 return
             handle = WorkHandle(
                 seqno=m.seqno,
@@ -3426,6 +3455,8 @@ class Server:
 
     def _on_unreserve(self, m: Msg) -> None:
         if m.data.get("fo_from") is not None:
+            if self._hold_resolution(m):
+                return
             new = self._adopted_unit_for(m)
             if new is None:
                 return  # the pin did not survive the takeover
@@ -3456,6 +3487,8 @@ class Server:
         payload-carrying RFR response to the requester, so the pinned
         unit is now consumed (the delivery IS the fetch)."""
         if m.data.get("fo_from") is not None:
+            if self._hold_resolution(m):
+                return
             new = self._adopted_unit_for(m)
             if new is None:
                 return
@@ -3468,6 +3501,30 @@ class Server:
         # drop ours without a second close
         self.journeys.forget(unit)
         self._consume(unit)
+
+    def _hold_resolution(self, m: Msg) -> bool:
+        """A relay resolution rerouted from a dead holder whose mirror is
+        still here (this server has not promoted it yet): hold it, since
+        its pinned unit has no local seqno before the adoption; _promote
+        replays it. Returns True when held."""
+        fo = m.data["fo_from"]
+        if fo not in self.mirrors:
+            return False
+        self._held_resolutions.setdefault(fo, []).append(m)
+        return True
+
+    def _resend_resolutions(self, dead: int) -> None:
+        """Send the dead holder's latest relay resolutions again; the
+        reroute takes them to its buddy (this server included), where
+        stale ones find no pinned unit and are ignored."""
+        for seqno, app, delivered in self._relay_resolved.pop(dead, ()):
+            m = msg(Tag.SS_DELIVERED if delivered else Tag.SS_UNRESERVE,
+                    self.rank, seqno=seqno, for_rank=app)
+            if self._srv_route.get(dead) == self.rank:
+                m.data["fo_from"] = dead
+                self._handlers[m.tag](m)
+            else:
+                self._send_srv(dead, m)
 
     # ------------------------------------------------------- push (memory)
 
@@ -4904,7 +4961,7 @@ class Server:
         (obs/slo.py suspect_ranks) over THIS server's scan window:
         in-window growth of the owner-labelled lease-expiry cells, plus
         (master only) gossip-stale members under the /healthz rule."""
-        suspect_ranks = require("obs.slo").suspect_ranks
+        from adlb_tpu_torch.obs.slo import suspect_ranks
 
         cur = self.metrics.labelled("leases_expired_by")
         memo = self._hedge_expiry_memo
@@ -5312,7 +5369,7 @@ class Server:
         repl = getattr(self, "repl", None)
         wal = getattr(self, "wal", None)
         if repl is not None and wal is not None:
-            TeeLog = require("runtime.wal").TeeLog
+            from adlb_tpu_torch.runtime.wal import TeeLog
 
             self.wlog = TeeLog([repl, wal])
         else:
@@ -5620,7 +5677,7 @@ class Server:
                     "slo needs the obs plane (ops_port + "
                     "obs_sync_interval > 0)"
                 )
-            SloEngine = require("obs.slo").SloEngine
+            from adlb_tpu_torch.obs.slo import SloEngine
 
             if self._slo_engine is None:
                 self._slo_engine = SloEngine(
@@ -6536,7 +6593,7 @@ class Server:
         counted losses by construction."""
         if self._draining_self or self.done:
             return
-        replica = require("runtime.replica")
+        from adlb_tpu_torch.runtime import replica
 
         buddy = replica.buddy_of(
             self.world, self.rank, self._buddy_excluded()
@@ -6555,7 +6612,7 @@ class Server:
             return
         if self._push_reserved and time.monotonic() < self._drain_deadline:
             return  # accepted pushes still in flight toward us
-        replica = require("runtime.replica")
+        from adlb_tpu_torch.runtime import replica
 
         buddy = replica.buddy_of(
             self.world, self.rank, self._buddy_excluded()
@@ -7148,7 +7205,7 @@ class Server:
         """Our buddy died: re-target the replication stream at the next
         live successor, seeding it with a full-state bootstrap (the
         mirror there starts empty)."""
-        replica = require("runtime.replica")
+        from adlb_tpu_torch.runtime import replica
 
         if new_buddy == self.rank:
             self.repl = None  # no live peer left to replicate to
@@ -7224,7 +7281,7 @@ class Server:
     def _on_repl(self, m: Msg) -> None:
         if not self._failover and m.src not in self._draining_servers:
             return  # a misconfigured peer's stream is ignorable
-        replica = require("runtime.replica")
+        from adlb_tpu_torch.runtime import replica
 
         self.mirrors.setdefault(
             m.src, replica.ReplicaMirror(m.src)
@@ -7239,7 +7296,7 @@ class Server:
         peer case (last pair dying together) still aborts."""
         if not self._failover:
             return False
-        replica = require("runtime.replica")
+        from adlb_tpu_torch.runtime import replica
 
         return replica.buddy_of(
             self.world, dead, self._buddy_excluded()
@@ -7304,7 +7361,7 @@ class Server:
         dead = m.rank
         if dead in self._dead_servers or dead == self.rank:
             return
-        replica = require("runtime.replica")
+        from adlb_tpu_torch.runtime import replica
 
         # clean retire (elastic scale-in drain_done): the shard was
         # fully shipped to the buddy BEFORE this frame, so the promote
@@ -7489,6 +7546,10 @@ class Server:
                 f"unpinned {swept} handoffs routed via dead server {dead}"
             )
             self._match_rq()
+        # ... and the other direction: units the dead server relayed to
+        # OUR ranks and we resolved may still stand pinned in the buddy's
+        # mirror (the consume or unpin died in its replication tail)
+        self._resend_resolutions(dead)
         # 7) the buddy replays the mirror and takes over; held until the
         # dead server's own EOF drains its replication tail (bounded —
         # the death may predate any connection from it to us)
@@ -7547,7 +7608,7 @@ class Server:
             if clean:
                 # a drained server with nothing to ship (it flushed an
                 # EMPTY full-state bootstrap): promote a blank mirror
-                replica = require("runtime.replica")
+                from adlb_tpu_torch.runtime import replica
 
                 mirror = replica.ReplicaMirror(dead)
             else:
@@ -7729,6 +7790,10 @@ class Server:
         # adopted ranks' streams may hold phantom slots (reserves parked
         # at the dead server): their next idle note re-arms them
         self._swept_streams |= newly
+        # relay resolutions that reached us before this adoption: their
+        # pinned units have local seqnos now
+        for held in self._held_resolutions.pop(dead, ()):
+            self._handlers[held.tag](held)
         if was_master and not clean:
             # the dead server was the BRAIN: restore the replicated
             # control plane, take the master role under a bumped epoch,
@@ -7857,7 +7922,7 @@ class Server:
                 (getattr(mirror, "slo_docs", None) or {}).values()
             )
             if slo_docs or self.cfg.slo or self._slo_engine is not None:
-                SloEngine = require("obs.slo").SloEngine
+                from adlb_tpu_torch.obs.slo import SloEngine
 
                 if self._slo_engine is None:
                     eng = SloEngine(
@@ -7883,7 +7948,7 @@ class Server:
                 self._slo_engine.note_epoch(self.world.epoch, now)
         pol = getattr(mirror, "control_policy", None)
         if self._controller is None and (pol or self.cfg.control):
-            Controller = require("control").Controller
+            from adlb_tpu_torch.control import Controller
 
             self._controller = Controller(
                 {
@@ -7923,7 +7988,7 @@ class Server:
         # death is a connectivity fault, not a process exit). The new
         # port travels in the takeover frame and the rendezvous dir.
         if armed and self.ops is None:
-            maybe_start = require("obs.ops_server").maybe_start
+            from adlb_tpu_torch.obs.ops_server import maybe_start
 
             self.ops = maybe_start(self, self.cfg, port=0)
         self._announce_ops_endpoint()
@@ -8171,6 +8236,18 @@ class Server:
             self.ep.send(ds, msg(Tag.DS_END, self.rank))
 
     # ------------------------------------------------------- stats surface
+
+    def planner_report(self) -> Optional[dict]:
+        """What this server's planner did (``AssignmentSolver.
+        planner_counts``) and its planning rounds (``rounds``; ``round_s``,
+        their host-clock seconds in all): its ``WorldResult.planner`` entry.
+        None when it never planned (a master in steal mode, a server that
+        was never promoted)."""
+        if self._solver is None:
+            return None
+        rounds = self.metrics.histogram("balancer_round_s")
+        return {**self._solver.planner_counts(),
+                "rounds": rounds.n, "round_s": rounds.sum}
 
     def finalize_stats(self) -> dict:
         from adlb_tpu_torch.utils.stats import rss_kb

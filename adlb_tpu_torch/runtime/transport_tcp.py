@@ -734,26 +734,24 @@ def _child_main(rank, world, cfg, app_fn, port_q, conn, result_q, abort_event,
         elif world.is_server(rank):
             from adlb_tpu_torch.runtime.server import Server
 
-            planning = cfg.balancer == "tpu" and rank == world.master_server_rank
-            if planning:
-                # the master plans in this process: its solve counts and
-                # kernel launches go back to the parent with its stats
-                from adlb_tpu_torch.balancer.solve import planner_counts
-
-                before = planner_counts()
             server = Server(world, cfg, ep, abort_event)
             server.run()
+            counts = None
+            if server._solver is not None:
+                # this server planned (the master, or a deputy that
+                # failover promoted): its counts go back to the parent
+                # with its stats, its kept solves checked first, since
+                # they end with this process
+                from adlb_tpu_torch.balancer.solve import check_kept
+
+                check_kept()
+                counts = server.planner_report()
             if server.died:
                 # fault-injected connectivity death absorbed by
                 # on_server_failure="failover" (a SIGKILLed server never
                 # reports at all; the parent classifies that case)
-                report("server_dead", None)
+                report("server_dead", counts)
             else:
-                counts = None
-                if planning:
-                    from adlb_tpu_torch.balancer.solve import planner_since
-
-                    counts = planner_since(before, server.metrics)
                 report("server", (server.finalize_stats(), counts))
         else:
             from adlb_tpu_torch.runtime.debug_server import DebugServer
@@ -800,7 +798,9 @@ def spawn_world(
     multi-host deployment (replace the port rendezvous with a shared file).
 
     Returns :class:`adlb_tpu_torch.api.WorldResult`; its ``planner`` holds
-    the planning process's solve counts and kernel launches. With
+    the solve counts and kernel launches of every process that planned, by
+    rank: the master, a deputy that failover promoted (and the master it
+    replaced, when that one lived to report), or the sidecar. With
     ``start_method="spawn"`` or ``"forkserver"`` the ``app_fn`` must be
     picklable (module-level).
 
@@ -983,6 +983,8 @@ def spawn_world(
                 planner[rank] = counts
         elif kind == "server_dead":
             server_casualties.append(rank)
+            if value is not None:  # a master that planned before it died
+                planner[rank] = value
         elif kind == "error":
             errors.append(f"rank {rank}: {value}")
         elif kind == "conn_lost":

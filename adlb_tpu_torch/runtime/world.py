@@ -790,28 +790,6 @@ class Config:
             )
         if self.balancer_idle_interval < 0:
             raise ValueError("balancer_idle_interval must be >= 0")
-        self._reject_unported()
-
-    def _reject_unported(self) -> None:
-        """Features whose modules are later slices of the port fail here,
-        at validation, instead of deep inside a running world."""
-        unported = {
-            "spill_dir (spill tier)": self.spill_dir is not None,
-            "wal_dir (write-ahead log)": self.wal_dir is not None,
-            "on_server_failure='failover' (replicas)":
-                self.on_server_failure == "failover",
-            "restore_path (checkpoint)": self.restore_path is not None,
-            "ops_port (ops endpoint)": self.ops_port is not None,
-            "slo (SLO engine)": bool(self.slo),
-            "control (controller)": self.control,
-            "periodic_log_interval (periodic stats)":
-                self.periodic_log_interval > 0,
-            "hedge_budget_frac (tail hedging)": self.hedge_budget_frac > 0,
-        }
-        named = [k for k, on in unported.items() if on]
-        if named:
-            raise NotImplementedError(
-                f"not yet ported to adlb_tpu_torch: {', '.join(named)}")
 
 
 def normalize_req_types(

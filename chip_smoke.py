@@ -40,17 +40,18 @@ no result). Phases:
    ledger's view path, both tiers equal; then, on the 10k row's final
    state, the auction kernel alone, the whole device plan (candidates,
    merge, auction) and its split, and the plain version, timed;
-6. run the known-answer workloads (nq, sudoku, gfmc, tsp, hotspot, model)
-   in planned-balancer worlds on the card; each must return its answer,
-   and every device solve must be one greedy-sweep launch;
+6. run the known-answer workloads (nq, sudoku, gfmc, tsp, hotspot, model,
+   add2, batcher, c1, c3, coinop, grid, partest, pmcmc, skel, trickle) in
+   planned-balancer worlds on the card; each must return its answer, and
+   every device solve must be one greedy-sweep launch;
 7. drive the all-native plane planned on the card: ``hotspot_native`` with
    16 C++ server daemons and 112 C clients (128 ranks), 20,000 tasks of
    2 ms entering one server, the planning sidecar at the phase-3 caps so
    every sidecar solve is a 65536 x 8192 instance; every task done once,
    every device solve one kernel launch, no host solve, every eighth solve
    equal to ``_host_greedy``; units/s, rounds and the solve split printed
-   beside phase 3's. Then the five native known-answer workloads (nq,
-   sudoku, gfmc, tsp, hotspot) at their default sizes on the card;
+   beside phase 3's. Then the seven native workloads (nq, sudoku, gfmc,
+   tsp, hotspot, coinop, trickle) at their default sizes on the card;
 8. a ``spawn_world`` process world, 32 apps x 8 Python servers at the same
    per-server caps, phase 3's app with 5,000 units; the master is a child
    started without fork that plans on the card and reports its solves,
@@ -59,7 +60,26 @@ no result). Phases:
    host split one world with native servers and the sidecar on the card
    in the master's launcher, ``nq_c`` as the app: nq's known answer, and
    the master launcher's kernel launches equal its device solves, every
-   one of them checked.
+   one of them checked;
+10. phase 3's world loses its master (``on_server_failure="failover"``, a
+    fault-injected disconnect of server index 0 at the outbound frame it
+    reaches once it has made 50 device solves, before half the units are
+    consumed): every unit completed, re-executed or counted lost, the
+    deputy builds its planner on the card and plans the rest, one launch
+    per device solve for each planner; MTTR and the time from promotion to
+    the deputy's first device solve are printed;
+11. phase 3's world with a write-ahead log and a spill tier, checkpointed by
+    rank 0 mid-run, then a second planned world that restores the
+    checkpoint and drains it: consumed and drained cover every unit;
+12. phase 3's world with two weighted jobs, the ops endpoint, an SLO
+    objective, the controller (dry run), tail hedging and periodic
+    statistics; a ``POST /jobs/1`` mid-run changes a weight, which must
+    reach the engine and the solver's job bias;
+13. phase 8's process world whose master is SIGKILLed: the promoted
+    deputy, a child that never used CUDA before, plans on the card and
+    reports its counts back.
+
+Each phase's wall time is printed.
 
 Every process that plans keeps every eighth device solve (phase 9: every
 one) and holds it against ``_host_greedy`` after the world
@@ -355,6 +375,9 @@ def check_kernel(gs, host_greedy, report):
     for nt, nr in ((65536, 8192), (32768, 4096)):
         run(f"world-shaped {nt}x{nr} T=5", world_instance(rng, nt, nr),
             "partition")
+    for route, make in ROUTE_CASES:
+        run(f"{route} 61440x7680 (phase 10's deputy: 15 servers)",
+            make(rng, 61440, 7680), route)
     run("one type 512x128 T=1 (phase 9's shape)",
         random_instance(rng, 512, 128, 1))
     run("all open 512x128 T=1", bench_instance(rng, 512, 128, t=1))
@@ -503,6 +526,18 @@ def keep_solves(every: int = CHECK_EVERY) -> None:
 
     solve.check_every = every
     os.environ["ADLB_CHECK_SOLVES"] = str(every)
+
+
+def stacks_on_timeout(run):
+    """``run()``, and when its world times out, every thread's stack on
+    stderr first: which rank or planner a hung world waits in."""
+    import faulthandler
+
+    try:
+        return run()
+    except TimeoutError:
+        faulthandler.dump_traceback(all_threads=True)
+        raise
 
 
 def check_planned(what: str, counts: dict, device: str = "cuda",
@@ -853,13 +888,31 @@ def run_workloads(gs, report, device="cuda"):
 
     from adlb_tpu_torch.balancer import solve
     from adlb_tpu_torch.runtime.world import Config
-    from adlb_tpu_torch.workloads import gfmc, hotspot, model, nq, sudoku, tsp
+    from adlb_tpu_torch.workloads import (
+        add2,
+        batcher,
+        c1,
+        c3,
+        coinop,
+        gfmc,
+        grid,
+        hotspot,
+        model,
+        nq,
+        pmcmc,
+        skel,
+        sudoku,
+        trickle,
+        tsp,
+    )
 
     keep_solves()
     cfg = Config(balancer="tpu", device=device, solver_host_threshold=0,
                  balancer_max_tasks=64, balancer_max_requesters=16,
                  exhaust_check_interval=0.15)
     dists = tsp.dist_matrix(tsp.make_cities(9, seed=3))
+    pairs = [(i, 2 * i + 1) for i in range(100)]
+    durations = [0.02, 0.01, 0.01, 0.005] * 3
     runs = (
         ("nq n=8", lambda: nq.run(n=8, num_app_ranks=4, nservers=2, cfg=cfg),
          lambda r: r.solutions == nq.KNOWN_SOLUTIONS[8],
@@ -881,6 +934,30 @@ def run_workloads(gs, report, device="cuda"):
             numprobs=40, work_secs=0.002, num_app_ranks=4, nservers=2,
             cfg=dataclasses.replace(cfg, balancer_mesh="auto")),
          lambda r: r.ok, lambda r: f"{r.num_done} of {r.numprobs} done"),
+        ("add2 100 pairs", lambda: add2.run(pairs, nservers=2, cfg=cfg),
+         lambda r: r.ok, lambda r: f"sum {r.total}"),
+        ("batcher 12 jobs", lambda: batcher.run(durations, nservers=2,
+                                                     cfg=cfg),
+         lambda r: sum(r.jobs_run.values()) == len(durations),
+         lambda r: f"{sum(r.jobs_run.values())} jobs run"),
+        ("c1", lambda: c1.run(nservers=2, cfg=cfg), lambda r: r.ok,
+         lambda r: f"B answer sum {r.total}"),
+        ("c3", lambda: c3.run(nservers=2, cfg=cfg), lambda r: r.ok,
+         lambda r: f"{r.a_answers} A and {r.c_answers} C answers"),
+        ("coinop", lambda: coinop.run(cfg=cfg), lambda r: r.pops == 500,
+         lambda r: f"{r.pops} pops, p50 {r.latency_p50_ms:.3f} ms"),
+        ("grid 8x8x4", lambda: grid.run(nservers=2, cfg=cfg),
+         lambda r: (r.grid == grid.run_sequential(8, 8, 4)).all(),
+         lambda r: f"grid == sequential, average {r.average:.6f}"),
+        ("partest", lambda: partest_world(cfg), lambda r: r,
+         lambda r: "every calibrated unit replayed once"),
+        ("pmcmc", lambda: pmcmc.run(nservers=2, cfg=cfg), lambda r: r.ok,
+         lambda r: f"{len(r.solutions)} chains equal to pmcmc.chain"),
+        ("skel", lambda: skel.run(cfg=cfg), lambda r: r.ok,
+         lambda r: f"{sum(r.consumed.values())} tasks of 8 types"),
+        ("trickle", lambda: trickle.run(cfg=cfg), lambda r: r.tasks == 200,
+         lambda r: f"{r.tasks} tokens, dispatch p50 "
+                   f"{r.dispatch_p50_ms:.3f} ms"),
     )
     total_launches = total_solves = 0
     for name, run, ok, what in runs:
@@ -905,9 +982,40 @@ def run_workloads(gs, report, device="cuda"):
     return total_launches, total_solves
 
 
+def partest_world(cfg, nunits=24) -> bool:
+    """partest has no world of its own: its calibrated units (define_work)
+    go through a planned world, each replayed (do_work) by the rank that
+    gets it. True when every unit was replayed once."""
+    import pickle
+
+    from adlb_tpu_torch import ADLB_SUCCESS, run_world
+    from adlb_tpu_torch.workloads import partest
+
+    units = [partest.define_work(0.002 * (1 + i % 3), nugget_reps=50)
+             for i in range(nunits)]
+
+    def app(ctx):
+        if ctx.rank == 0:
+            for i, u in enumerate(units):
+                ctx.put(pickle.dumps((i, u)), 1)
+        done = []
+        while True:
+            rc, w = ctx.get_work([1])
+            if rc != ADLB_SUCCESS:
+                return done
+            i, u = pickle.loads(w.payload)
+            partest.do_work(u, nugget_reps=50)
+            done.append(i)
+
+    res = run_world(num_app_ranks=4, nservers=2, types=[1], app_fn=app,
+                    cfg=cfg, timeout=300)
+    return sorted(i for v in res.app_results.values() for i in v) \
+        == list(range(nunits))
+
+
 #: the C client of each native workload (built in phase 1)
 NATIVE_EXAMPLES = ("hotspot_c.c", "nq_c.c", "sudoku_c.c", "gfmc_c.c",
-                   "tsp_c.c")
+                   "tsp_c.c", "coinop_c.c", "trickle_c.c")
 
 
 def build_native():
@@ -967,16 +1075,19 @@ def run_native_plane(gs, report, device="cuda", n_tasks=20_000,
 
 
 def run_native_workloads(gs, report, device="cuda"):
-    """Phase 7, second part: the five native known-answer workloads at their
-    default sizes with the sidecar on the card. Returns the kernel launches
+    """Phase 7, second part: the seven native workloads (five known
+    answers, the coinop and trickle probes) at their default sizes with
+    the sidecar on the card. Returns the kernel launches
     and device solves of all runs."""
     from adlb_tpu_torch.balancer import solve
     from adlb_tpu_torch.runtime.world import Config
     from adlb_tpu_torch.workloads import (
+        coinop_native,
         gfmc_native,
         hotspot_native,
         nq_native,
         sudoku_native,
+        trickle_native,
         tsp_native,
     )
 
@@ -997,6 +1108,13 @@ def run_native_workloads(gs, report, device="cuda"):
         ("hotspot_native", lambda: hotspot_native.run(cfg=cfg),
          lambda r: r.tasks == 2000,
          lambda r: f"{r.tasks} tokens, {r.tasks_per_sec:.1f} tasks/s"),
+        ("coinop_native", lambda: coinop_native.run(cfg=cfg),
+         lambda r: r.pops == 400,
+         lambda r: f"{r.pops} pops, p50 {r.latency_p50_ms:.3f} ms"),
+        ("trickle_native", lambda: trickle_native.run(cfg=cfg),
+         lambda r: r.tasks == 240,
+         lambda r: f"{r.tasks} tokens, dispatch p50 "
+                   f"{r.dispatch_p50_ms:.3f} ms"),
     )
     total_launches = total_solves = 0
     for name, run, ok, what in runs:
@@ -1122,6 +1240,648 @@ def run_launchers(report, device="cuda", n=10, cutoff=3, apps_per_host=4):
     return counts
 
 
+def failover_app(ctx, nunits: int, work_s: float, progress=None):
+    """Phases 10 and 13: phase 3's app made to outlive a server: every rank
+    takes fused reserves (``get_work``) and rank 0 collects answers until
+    the world's exhaustion instead of counting them, since a unit that
+    failover counts as lost never answers, and a worker spends ``work_s``
+    seconds on each unit. Returns rank 0's answered units, every other
+    rank's consumed units. ``progress`` (in-process only) gets one entry
+    per unit consumed."""
+    from adlb_tpu_torch import ADLB_SUCCESS
+
+    if ctx.rank == 0:
+        for i in range(nunits):
+            ctx.put(i.to_bytes(4, "little"), MAIN_TYPES[i % 4],
+                    work_prio=(i * 31) % 97)
+        answered = []
+        while True:
+            rc, w = ctx.get_work([MAIN_ANSWER])
+            if rc != ADLB_SUCCESS:
+                return answered
+            answered.append(int.from_bytes(w.payload, "little"))
+    seen = []
+    while True:
+        rc, w = ctx.get_work(list(MAIN_TYPES))
+        if rc != ADLB_SUCCESS:
+            return seen
+        i = int.from_bytes(w.payload, "little")
+        seen.append(i)
+        if progress is not None:
+            progress.append(i)
+        time.sleep(work_s)
+        ctx.put(i.to_bytes(4, "little"), MAIN_ANSWER, target_rank=0)
+
+
+def check_failover(what: str, res, nunits: int, master: int) -> dict:
+    """Every unit completed, re-executed or counted in FAILOVER_LOST, the
+    master the one casualty, a takeover reported and the world not
+    aborted. Returns the world's unit accounting."""
+    from adlb_tpu_torch.types import InfoKey
+
+    consumed = [i for r, v in res.app_results.items() if r != 0
+                for i in v]
+    lost = sum(s.get(int(InfoKey.FAILOVER_LOST), 0.0)
+               for s in res.server_stats.values())
+    failovers = sum(s.get(int(InfoKey.NUM_FAILOVERS), 0.0)
+                    for s in res.server_stats.values())
+    missing = set(range(nunits)) - set(consumed)
+    if (len(missing) > lost or res.server_casualties != [master]
+            or failovers < 1 or res.aborted
+            or not set(res.app_results[0]) <= set(consumed)):
+        raise AssertionError(
+            f"{what}: {len(missing)} units missing with {lost} counted "
+            f"lost, casualties {res.server_casualties}, failovers "
+            f"{failovers}, aborted {res.aborted}")
+    return {"consumed": len(consumed), "distinct": len(set(consumed)),
+            "re_executed": len(consumed) - len(set(consumed)),
+            "lost": int(lost), "failovers": int(failovers),
+            "answered": len(res.app_results[0])}
+
+
+class FailoverProbe:
+    """Phase 10's instruments: the servers, the master's fault plan (its
+    endpoint's ``disconnect_at`` is set mid-run to the next outbound
+    frame, see :meth:`arm`), the
+    deputy's promotion time and MTTR gauge, and the host-clock end of
+    each solver's first device solve."""
+
+    def __init__(self, master: int, min_solves: int):
+        from adlb_tpu_torch.balancer import solve
+        from adlb_tpu_torch.runtime import faults, server
+
+        self.faults, self.server, self.solve = faults, server, solve
+        self.master, self.min_solves = master, min_solves
+        self.plans, self.first_solve = {}, {}
+        self.servers = {}
+        self.promoted = None  # (host-clock time, deputy Server, mttr ms)
+        self.death = None  # (frame N, master's device solves, consumed)
+
+    def __enter__(self):
+        probe = self
+        wrap = self.untimed_wrap = self.faults.maybe_wrap
+        promote = self.untimed_promote = self.server.Server._promote_master
+        run = self.untimed_run = self.server.Server.run
+        dsolve = self.untimed_solve = \
+            self.solve.AssignmentSolver._device_solve
+
+        def maybe_wrap(ep, cfg, world=None):
+            out = wrap(ep, cfg, world)
+            if hasattr(out, "plan"):
+                probe.plans[out.rank] = out.plan
+            return out
+
+        def run_server(srv):
+            probe.servers[srv.rank] = srv
+            return run(srv)
+
+        def promote_master(srv, *args):
+            promote(srv, *args)
+            probe.promoted = (time.perf_counter(), srv, srv.metrics.gauge(
+                "master_failover_mttr_ms").v)
+
+        def device_solve(solver, *arrays):
+            out = dsolve(solver, *arrays)
+            probe.first_solve.setdefault(id(solver), time.perf_counter())
+            return out
+
+        self.faults.maybe_wrap = maybe_wrap
+        self.server.Server._promote_master = promote_master
+        self.server.Server.run = run_server
+        self.solve.AssignmentSolver._device_solve = device_solve
+        return self
+
+    def __exit__(self, *exc):
+        self.faults.maybe_wrap = self.untimed_wrap
+        self.server.Server._promote_master = self.untimed_promote
+        self.server.Server.run = self.untimed_run
+        self.solve.AssignmentSolver._device_solve = self.untimed_solve
+
+    def arm(self, progress: list, half: int, stop: threading.Event) -> None:
+        """Run beside the world: once the master has made ``min_solves``
+        device solves, and before ``half`` units are consumed, its next
+        outbound frame disconnects it."""
+        while not stop.is_set():
+            plan = self.plans.get(self.master)
+            srv = self.servers.get(self.master)
+            if plan is not None and srv is not None and \
+                    self.solve.solve_counts["device"] >= self.min_solves:
+                done = len(progress)
+                if done >= half:
+                    return  # too late: the phase fails on self.death
+                with plan._lock:
+                    plan.disconnect_at = plan.frame + 1
+                self.death = (plan.disconnect_at,
+                              self.solve.solve_counts["device"], done,
+                              srv.wq.untargeted_avail)
+                return
+            time.sleep(0.0005)
+
+
+def run_master_failover(gs, report, device="cuda", nunits=10_000, napps=64,
+                        nservers=16, max_tasks=4096, max_requesters=512,
+                        min_solves=50, work_s=0.01):
+    """Phase 10: phase 3's world loses its master. ``fault_spec`` arms a
+    disconnect of server index 0, whose frame number N is set mid-run:
+    the master's next outbound frame once it has made ``min_solves``
+    device solves, while fewer than half the units are consumed. Each
+    unit takes its worker ``work_s`` seconds, so the deputy's own workers
+    fall behind rank 0's puts and the deputy has a backlog to plan. The
+    deputy builds its PlanEngine on the card and plans the rest. Returns
+    (wall, the planners' counts by rank, the probe's numbers)."""
+    import dataclasses
+
+    from adlb_tpu_torch import run_world
+    from adlb_tpu_torch.balancer import solve
+
+    master, deputy = napps, napps + 1
+    cfg = dataclasses.replace(
+        main_path_config(device, max_tasks, max_requesters),
+        on_server_failure="failover", failover_client_wait=60.0,
+        fault_spec={"seed": 10, "disconnect_server_at": {0: 2**62}})
+    keep_solves()
+    gs.reset_counts()
+    solve.reset_counts()
+    progress, stop = [], threading.Event()
+    with FailoverProbe(master, min_solves) as probe:
+        arm = threading.Thread(target=probe.arm,
+                               args=(progress, nunits // 2, stop),
+                               daemon=True)
+        arm.start()
+        t0 = time.perf_counter()
+        res = stacks_on_timeout(lambda: run_world(
+            num_app_ranks=napps, nservers=nservers,
+            types=MAIN_TYPES + (MAIN_ANSWER,),
+            app_fn=functools.partial(failover_app, nunits=nunits,
+                                     work_s=work_s, progress=progress),
+            cfg=cfg, timeout=240))
+        wall = time.perf_counter() - t0
+        stop.set()
+        arm.join()
+    if probe.death is None:
+        raise AssertionError(f"master failover: the master made under "
+                             f"{min_solves} device solves before half the "
+                             f"units were consumed")
+    acct = check_failover("master failover", res, nunits, master)
+    counts = solve.planner_counts()
+    planners = res.planner
+    if set(planners) != {master, deputy} or probe.promoted is None \
+            or probe.promoted[1].rank != deputy:
+        raise AssertionError(f"master failover: planners {sorted(planners)}"
+                             f", promoted {probe.promoted}")
+    dep_solver = probe.promoted[1]._solver
+    # a solve packs the servers whose snapshots the planner holds: at most
+    # the 15 still alive after the death (fewer in the first rounds after
+    # the promotion, while the survivors' snapshots arrive)
+    shape = (max_tasks * (nservers - 1), max_requesters * (nservers - 1))
+    dep_shapes = [tuple(s) for s in planners[deputy]["device_shapes"]]
+    for rank, c in planners.items():
+        if c["host_solves"] or c["solves_kept"] < -(-c["device_solves"]
+                                                     // CHECK_EVERY) \
+                or c["greedy_sweep_launches"] != \
+                (device == "cuda") * c["device_solves"]:
+            raise AssertionError(f"master failover: rank {rank}'s planner "
+                                 f"counts {c}")
+    if planners[deputy]["device_solves"] == 0 or not dep_shapes \
+            or max(dep_shapes) != shape:
+        raise AssertionError(
+            f"master failover: the deputy's device solves "
+            f"{planners[deputy]['device_solves']} at shapes {dep_shapes}, "
+            f"want up to {shape}")
+    if counts["solves_wrong"] or counts["solves_checked"] != sum(
+            c["solves_kept"] for c in planners.values()):
+        raise AssertionError(f"master failover: checks {counts}")
+    to_first = probe.first_solve[id(dep_solver)] - probe.promoted[0]
+    n, at_solves, at_consumed, at_backlog = probe.death
+    report(f"phase 10: world {napps} apps x {nservers} servers, master "
+           f"(rank {master}) disconnected at its outbound frame N={n}, "
+           f"after {at_solves} of its device solves and {at_consumed} of "
+           f"{nunits} units consumed, holding {at_backlog} untargeted "
+           f"units; the world ended in {wall:.3f} s "
+           f"({nunits / wall:.1f} units/s): {acct['consumed']} consumed "
+           f"({acct['distinct']} distinct, {acct['re_executed']} "
+           f"re-executed), {acct['lost']} counted lost, "
+           f"{acct['failovers']} failover(s), {acct['answered']} answers")
+    report(f"phase 10: master_failover_mttr_ms {probe.promoted[2]:.3f}; "
+           f"promotion to the deputy's first device solve (its PlanEngine "
+           f"built on the card) {1e3 * to_first:.3f} ms; device solves by "
+           f"planning rank " + ", ".join(
+               f"{r}: {c['device_solves']} ({c['greedy_sweep_launches']} "
+               f"kernel launches, {c['solves_kept']} kept)"
+               for r, c in sorted(planners.items()))
+           + f"; the deputy's solves at "
+           + ", ".join(f"{a}x{b}" for a, b in dep_shapes) + "; "
+           f"{counts['solves_checked']} kept solves == _host_greedy")
+    return wall, planners, {"death_frame": n, "master_solves_at_death":
+                            at_solves, "consumed_at_death": at_consumed,
+                            "backlog_at_death": at_backlog,
+                            "mttr_ms": probe.promoted[2],
+                            "promotion_to_first_solve_ms": 1e3 * to_first,
+                            **acct}
+
+
+def checkpoint_app(ctx, nunits: int, prefix: str, pad: int, hold_s: float):
+    """Phase 11's first world: rank 0 puts ``nunits`` padded units, lets
+    the planner match and migrate them for ``hold_s`` seconds, checkpoints
+    the pool (``ctx.checkpoint``) and ends the world; every other rank
+    consumes until the end. Returns ("ckpt", units captured, timings) at
+    rank 0, where timings holds the host-clock seconds of its ``iput``
+    loop (``put_s``) and of the ``flush_puts`` that waits for the last
+    acks (``flush_s``), and the process's device solves when it
+    checkpoints (``solves_at_ckpt``); the consumed units elsewhere. The
+    puts are pipelined (``iput``): a write-ahead log holds each put's ack
+    until the group commit that covers it, so synchronous puts would pay
+    one commit window each."""
+    from adlb_tpu_torch import ADLB_SUCCESS
+    from adlb_tpu_torch.balancer import solve
+
+    if ctx.rank == 0:
+        t0 = time.perf_counter()
+        for i in range(nunits):
+            ctx.iput(i.to_bytes(4, "little") + bytes(pad), MAIN_TYPES[i % 4],
+                     work_prio=(i * 31) % 97)
+        t1 = time.perf_counter()
+        if ctx.flush_puts() != ADLB_SUCCESS:
+            raise RuntimeError("a put was not accepted")
+        t2 = time.perf_counter()
+        time.sleep(hold_s)
+        timings = {"put_s": t1 - t0, "flush_s": t2 - t1,
+                   "solves_at_ckpt": solve.solve_counts["device"]}
+        rc, n = ctx.checkpoint(prefix)
+        if rc != ADLB_SUCCESS:
+            raise RuntimeError(f"checkpoint failed: rc={rc}")
+        ctx.set_problem_done()
+        return ("ckpt", n, timings)
+    return drain_app(ctx)
+
+
+def durable_config(device, tmp: str, nunits: int, max_tasks=4096,
+                   max_requesters=512, pad=60, wal_fsync_ms=20.0):
+    """Phase 11's first world's Config: phase 3's, with a 64 MiB memory
+    cap per server, a write-ahead log under ``tmp`` whose group commit is
+    ``wal_fsync_ms`` wide, and a spill tier under ``tmp`` whose watermark
+    is 80% of the pool's payload bytes (``nunits`` units of 4 + ``pad``
+    bytes)."""
+    import dataclasses
+
+    cap = 64 << 20
+    return dataclasses.replace(
+        main_path_config(device, max_tasks, max_requesters),
+        max_malloc_per_server=cap, wal_dir=os.path.join(tmp, "wal"),
+        wal_fsync_ms=wal_fsync_ms, spill_dir=os.path.join(tmp, "spill"),
+        spill_watermark_frac=0.8 * nunits * (4 + pad) / cap)
+
+
+def drain_app(ctx):
+    """Consume until the world ends; the consumed unit ids."""
+    from adlb_tpu_torch import ADLB_SUCCESS
+
+    seen = []
+    while True:
+        rc, w = ctx.get_work(list(MAIN_TYPES))
+        if rc != ADLB_SUCCESS:
+            return seen
+        seen.append(int.from_bytes(w.payload[:4], "little"))
+
+
+def run_durable_world(gs, report, device="cuda", nunits=10_000, napps=64,
+                      nservers=16, max_tasks=4096, max_requesters=512,
+                      pad=60, hold_s=2.0, wal_fsync_ms=20.0):
+    """Phase 11: phase 3's world with a write-ahead log (``wal_dir``) and
+    a spill tier (``spill_dir``) (:func:`durable_config`), checkpointed
+    mid-run by rank 0 while the planner migrates; then a second planned
+    world restores the checkpoint (``restore_path``) and drains it. The
+    WAL's group commit is ``wal_fsync_ms`` wide: a put handler commits
+    once the window is due, so where an fsync takes longer than the 5 ms
+    default window, every put would sync. About a fifth of the payloads
+    spill (the tier scans the queue for a victim on every put over the
+    watermark). The planner must have made device solves before the
+    checkpoint; consumed and drained must cover every unit; both worlds'
+    K1 launches equal their device solves, and their kept solves equal
+    ``_host_greedy``. Returns the two walls, the spilled share and both
+    worlds' planner counts."""
+    import dataclasses
+
+    from adlb_tpu_torch import run_world
+    from adlb_tpu_torch.balancer import solve
+    from adlb_tpu_torch.runtime import spill, wal
+
+    spilled, syncs = [], []
+    put, sync = spill.SpillStore.put, wal.WriteAheadLog._sync
+
+    def counted_put(store, seqno, blob):
+        spilled.append(seqno)
+        return put(store, seqno, blob)
+
+    def timed_sync(log):
+        t = time.perf_counter()
+        out = sync(log)
+        syncs.append(time.perf_counter() - t)
+        return out
+
+    walls, counts = [], []
+    threads_at_start = threading.active_count()
+    keep_solves()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "pool")
+        cfg1 = durable_config(device, tmp, nunits, max_tasks, max_requesters,
+                              pad, wal_fsync_ms)
+        spill.SpillStore.put = counted_put
+        wal.WriteAheadLog._sync = timed_sync
+        try:
+            for cfg, app in (
+                    (cfg1, functools.partial(checkpoint_app, nunits=nunits,
+                                             prefix=prefix, pad=pad,
+                                             hold_s=hold_s)),
+                    (dataclasses.replace(cfg1, wal_dir=None,
+                                         restore_path=prefix,
+                                         spill_dir=os.path.join(tmp, "s2")),
+                     drain_app)):
+                gs.reset_counts()
+                solve.reset_counts()
+                t0 = time.perf_counter()
+                res = stacks_on_timeout(lambda: run_world(
+                    num_app_ranks=napps, nservers=nservers,
+                    types=MAIN_TYPES + (MAIN_ANSWER,), app_fn=app, cfg=cfg,
+                    timeout=600))
+                walls.append(time.perf_counter() - t0)
+                if res.aborted:
+                    raise AssertionError("durable world aborted")
+                counts.append(solve.planner_counts())
+                check_planned(f"durable world {len(walls)}", counts[-1],
+                              device)
+                if len(walls) == 1:
+                    _, ckpt, timings = res.app_results[0]
+                    consumed = {i for r, v in res.app_results.items()
+                                if r != 0 for i in v}
+                    nspilled = len(spilled)
+                    wal_bytes = sum(
+                        os.path.getsize(wal.log_path(cfg.wal_dir, r))
+                        for r in range(napps, napps + nservers)
+                        if os.path.exists(wal.log_path(cfg.wal_dir, r)))
+                else:
+                    drained = [i for v in res.app_results.values()
+                               for i in v]
+        finally:
+            spill.SpillStore.put = put
+            wal.WriteAheadLog._sync = sync
+    if consumed | set(drained) != set(range(nunits)) \
+            or len(drained) != ckpt:
+        raise AssertionError(
+            f"durable world: {len(consumed)} consumed before the checkpoint "
+            f"and {len(drained)} drained after ({ckpt} captured) miss "
+            f"{len(set(range(nunits)) - consumed - set(drained))} units")
+    if timings["solves_at_ckpt"] < 1:
+        raise AssertionError("durable world: the planner made no device "
+                             "solve before rank 0's checkpoint")
+    share = nspilled / nunits
+    if share < 0.1:
+        raise AssertionError(f"durable world: only {share:.1%} of the "
+                             f"payloads spilled")
+    report(f"phase 11: durable world {napps} apps x {nservers} servers, "
+           f"{nunits} units of {4 + pad} bytes, {threads_at_start} threads "
+           f"alive before it: rank 0's iput loop {timings['put_s']:.3f} s "
+           f"({nunits / timings['put_s']:.1f} puts/s), its flush_puts "
+           f"{timings['flush_s']:.3f} s; {len(consumed)} consumed "
+           f"in {walls[0]:.3f} s before the world ended at rank 0's "
+           f"checkpoint ({ckpt} units captured, "
+           f"{timings['solves_at_ckpt']} device solves before it); "
+           f"{nspilled} payloads "
+           f"spilled ({100 * share:.1f}%), {wal_bytes} WAL bytes in "
+           f"{len(syncs)} group commits ({wal_fsync_ms} ms window; fsync "
+           f"median {1e3 * statistics.median(syncs or [0]):.3f} ms, max "
+           f"{1e3 * max(syncs or [0]):.3f} ms, {sum(syncs):.3f} s in all); "
+           f"the "
+           f"restoring world drained {len(drained)} in {walls[1]:.3f} s; "
+           f"consumed + drained == all {nunits}; device solves "
+           f"{counts[0]['device_solves']} + {counts[1]['device_solves']} "
+           f"= kernel launches {counts[0]['greedy_sweep_launches']} + "
+           f"{counts[1]['greedy_sweep_launches']}; "
+           f"{counts[0]['solves_checked'] + counts[1]['solves_checked']} "
+           f"kept solves == _host_greedy")
+    return walls, share, counts
+
+
+def jobs_app(ctx, nunits: int, announce: str, weight: float, answers: dict,
+             ready: threading.Event):
+    """Phase 12: rank 0 submits two jobs, puts half of job 1's units (the
+    even unit ids), POSTs job 1's new weight to the ops endpoint (found in
+    the ``announce`` directory), reads /metrics, /alerts and /control,
+    puts the rest of job 1's units and job 2's (the odd ids), and drains
+    both jobs; the other ranks attach to one job each (odd ranks job 1,
+    once rank 0 has submitted both) and consume until their job is done.
+    Rank 0's home server holds no job-1 worker, so every job-1 unit
+    reaches its worker through the planner, also after the POST."""
+    import urllib.request
+
+    from adlb_tpu_torch import ADLB_SUCCESS
+
+    if ctx.rank == 0:
+        jobs = [ctx.submit_job(name)[1] for name in ("a", "b")]
+        if jobs != [1, 2]:
+            raise RuntimeError(f"job ids {jobs}")
+        ready.set()
+
+        def put(units):
+            for i in units:
+                ctx.put(i.to_bytes(4, "little"), MAIN_TYPES[i % 4],
+                        work_prio=(i * 31) % 97)
+
+        ctx.attach(1)
+        put(range(0, nunits // 2, 2))
+        path = os.path.join(announce, "ops_endpoint.json")
+        deadline = time.monotonic() + 30
+        while not os.path.exists(path) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        with open(path) as f:
+            base = f"http://127.0.0.1:{json.load(f)['port']}"
+        req = urllib.request.Request(
+            f"{base}/jobs/1", data=json.dumps({"weight": weight}).encode(),
+            method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            answers["post"] = json.load(r)
+        answers["posted_at"] = time.perf_counter()
+        for route in ("metrics", "alerts", "control"):
+            with urllib.request.urlopen(f"{base}/{route}", timeout=30) as r:
+                answers[route] = (r.status, r.read().decode())
+        put(range(nunits // 2, nunits, 2))
+        ctx.attach(2)
+        put(range(1, nunits, 2))
+        for jid in jobs:
+            ctx.drain_job(jid)
+        return None
+    if not ready.wait(60):
+        raise RuntimeError("the jobs were not submitted")
+    jid = 2 - ctx.rank % 2
+    ctx.attach(jid)
+    seen = []
+    while True:
+        rc, w = ctx.get_work(list(MAIN_TYPES))
+        if rc != ADLB_SUCCESS:
+            return (jid, seen)
+        seen.append(int.from_bytes(w.payload, "little"))
+
+
+def run_fleet_control(gs, report, device="cuda", nunits=10_000, napps=64,
+                      nservers=16, max_tasks=4096, max_requesters=512):
+    """Phase 12: phase 3's world with two weighted jobs (jobs 1 and 2;
+    ``balancer_max_jobs=3``, since the planner plans job ids below it and
+    leaves the others to the servers' pull), the ops endpoint,
+    one SLO objective, the controller (dry run), tail hedging and periodic
+    statistics. Mid-run a POST changes job 1's weight; it must reach
+    ``PlanEngine.set_job_weights`` and the solver's ``set_job_bias``, and
+    the solves after it are held against ``_host_greedy`` on the biased
+    inputs. Returns (wall, planner counts, solves after the change)."""
+    import dataclasses
+
+    from adlb_tpu_torch import run_world
+    from adlb_tpu_torch.balancer import engine, solve
+    from adlb_tpu_torch.runtime import stats
+
+    changes = []
+    set_weights = engine.PlanEngine.set_job_weights
+
+    def traced_set_weights(eng, weights):
+        before = list(eng.solver.job_bias)
+        changed = set_weights(eng, weights)
+        changes.append((dict(weights or {}), changed, before,
+                        list(eng.solver.job_bias),
+                        eng.solver.device_solve_count,
+                        eng.solver.solves_kept, eng.solver))
+        return changed
+
+    lines, answers = [], {}
+    keep_solves()
+    gs.reset_counts()
+    solve.reset_counts()
+    with tempfile.TemporaryDirectory() as announce:
+        cfg = dataclasses.replace(
+            main_path_config(device, max_tasks, max_requesters),
+            balancer_max_jobs=3, job_weights={2: 2.0}, ops_port=0,
+            ops_announce_dir=announce, obs_sync_interval=0.25,
+            slo=[{"name": "unit-p99", "p99_ms": 60_000.0, "window_s": 60}],
+            control=True, control_dry_run=True, hedge_budget_frac=0.05,
+            lease_timeout_s=60.0, periodic_log_interval=1.0)
+        engine.PlanEngine.set_job_weights = traced_set_weights
+        stats.set_sink(lines.append)
+        try:
+            t0 = time.perf_counter()
+            res = stacks_on_timeout(lambda: run_world(
+                num_app_ranks=napps, nservers=nservers,
+                types=MAIN_TYPES + (MAIN_ANSWER,),
+                app_fn=functools.partial(
+                    jobs_app, nunits=nunits, announce=announce, weight=4.0,
+                    answers=answers, ready=threading.Event()),
+                cfg=cfg, timeout=240))
+            wall = time.perf_counter() - t0
+        finally:
+            engine.PlanEngine.set_job_weights = set_weights
+            stats.set_sink(None)
+    counts = solve.planner_counts()
+    check_planned("fleet control", counts, device)
+    got = {j: sorted(i for r, v in res.app_results.items()
+                     if r != 0 and v[0] == j for i in v[1]) for j in (1, 2)}
+    if res.aborted or got != {j: list(range(j - 1, nunits, 2))
+                              for j in (1, 2)}:
+        raise AssertionError("fleet control: units not consumed exactly "
+                             "once per job")
+    applied = [c for c in changes if c[0] == {1: 4.0, 2: 2.0} and c[1]]
+    if not applied or answers["post"].get("weight") != 4.0:
+        raise AssertionError(f"fleet control: the POSTed weight never "
+                             f"reached the engine: {changes[:3]}, "
+                             f"{answers.get('post')}")
+    _, _, bias_before, bias, solves_then, kept_then, solver = applied[0]
+    after = solver.device_solve_count - solves_then
+    kept_after = solver.solves_kept - kept_then
+    if after == 0 or kept_after == 0 or bias == bias_before:
+        raise AssertionError(f"fleet control: {after} device solves and "
+                             f"{kept_after} kept after the change, bias "
+                             f"{bias}")
+    for route in ("metrics", "alerts", "control"):
+        if answers[route][0] != 200:
+            raise AssertionError(f"fleet control: GET /{route} answered "
+                                 f"{answers[route][0]}")
+    alerts = json.loads(answers["alerts"][1])
+    if [o["name"] for o in alerts["objectives"]] != ["unit-p99"] \
+            or not json.loads(answers["control"][1])["enabled"] \
+            or "adlb_" not in answers["metrics"][1]:
+        raise AssertionError("fleet control: /alerts, /control or /metrics "
+                             "answered something else")
+    records = stats.parse_stat_lines(lines)
+    if not records or records[-1]["nservers"] != nservers:
+        raise AssertionError("fleet control: no periodic statistics record "
+                             "of every server")
+    report(f"phase 12: world {napps} apps x {nservers} servers, two jobs "
+           f"(weights {{2: 2.0}}, then POST /jobs/1 weight 4.0), ops "
+           f"endpoint, one SLO objective, controller (dry run), hedging "
+           f"(budget 0.05), periodic statistics every 1 s: {nunits} units "
+           f"consumed once per job in {wall:.3f} s ({nunits / wall:.1f} "
+           f"units/s); the weight reached set_job_weights and the solver's "
+           f"job bias {bias_before} -> {bias}; device solves "
+           f"{counts['device_solves']} ({after} after the change, "
+           f"{kept_after} of them kept) = kernel launches "
+           f"{counts['greedy_sweep_launches']}; {counts['solves_checked']} "
+           f"kept solves == _host_greedy on the biased inputs; /metrics "
+           f"{len(answers['metrics'][1])} bytes, /alerts and /control "
+           f"answered; {len(records)} STAT_APS records of {nservers} "
+           f"servers")
+    return wall, counts, after
+
+
+def run_process_failover(report, device="cuda", nunits=5_000, napps=32,
+                         nservers=8, max_tasks=4096, max_requesters=512,
+                         work_s=0.01):
+    """Phase 13: phase 8's process world whose master is SIGKILLed at its
+    60th outbound frame (``kill_server_at_frame``). The deputy is a child
+    that has not used CUDA; it loads the kernel the parent built at
+    promotion, plans on the card and sends its counts back in
+    ``WorldResult.planner``. Returns (wall, the deputy's counts)."""
+    import dataclasses
+
+    from adlb_tpu_torch.runtime.transport_tcp import (
+        resolve_start_method,
+        spawn_world,
+    )
+
+    master, deputy = napps, napps + 1
+    cfg = dataclasses.replace(
+        main_path_config(device, max_tasks, max_requesters),
+        on_server_failure="failover", failover_client_wait=60.0,
+        fault_spec={"seed": 13, "kill_server_at_frame": {0: 60}})
+    keep_solves()
+    t0 = time.perf_counter()
+    res = spawn_world(napps, nservers, MAIN_TYPES + (MAIN_ANSWER,),
+                      functools.partial(failover_app, nunits=nunits,
+                                        work_s=work_s),
+                      cfg=cfg, timeout=240)
+    wall = time.perf_counter() - t0
+    acct = check_failover("process-world failover", res, nunits, master)
+    if list(res.planner) != [deputy]:  # a SIGKILLed master never reports
+        raise AssertionError(f"process-world failover: planners "
+                             f"{res.planner}")
+    counts = res.planner[deputy]
+    check_planned("process world's promoted deputy", counts, device)
+    # the deputy packs the servers whose snapshots it holds: at most the 7
+    # still alive (fewer in its first rounds)
+    shape = [max_tasks * (nservers - 1), max_requesters * (nservers - 1)]
+    shapes = counts["device_shapes"]
+    if not shapes or max(shapes) != shape:
+        raise AssertionError(f"process-world failover: the deputy solved "
+                             f"at {shapes}, want up to {shape}")
+    report(f"phase 13: spawn_world {napps} apps x {nservers} Python servers "
+           f"(ranks started with {resolve_start_method(cfg, None)!r}), "
+           f"master SIGKILLed at its 60th outbound frame, {nunits} units: "
+           f"the world ended in {wall:.3f} s ({nunits / wall:.1f} units/s),"
+           f" {acct['consumed']} consumed ({acct['re_executed']} "
+           f"re-executed), {acct['lost']} counted lost; the deputy (rank "
+           f"{deputy}) reported device solves {counts['device_solves']} "
+           f"at " + ", ".join(f"{a}x{b}" for a, b in shapes) + ", "
+           f"host solves {counts['host_solves']}, kernel launches "
+           f"{counts['greedy_sweep_launches']}, {counts['rounds']} rounds; "
+           f"{counts['solves_checked']} == _host_greedy")
+    return wall, counts
+
+
 def main() -> int:
     import torch
 
@@ -1136,6 +1896,15 @@ def main() -> int:
 
     def report(line: str) -> None:
         print(f"[{label}] {line}", flush=True)
+
+    laps = [time.perf_counter()]
+    phase_walls = {}
+
+    def lap(phase: str) -> None:
+        """Print the wall time of the phase that just ended."""
+        laps.append(time.perf_counter())
+        phase_walls[phase] = laps[-1] - laps[-2]
+        report(f"phase {phase}: wall {phase_walls[phase]:.1f} s")
 
     from adlb_tpu_torch.balancer import auction, cuda_build
 
@@ -1159,8 +1928,10 @@ def main() -> int:
         for ln in log.splitlines():
             if "ptxas" in ln:
                 report(f"phase 1: {ln.strip()}")
+    lap("1")
 
     by_case, max_err = check_kernel(gs, solve._host_greedy, report)
+    lap("2")
 
     keep_solves()
     gs.reset_counts()
@@ -1203,8 +1974,10 @@ def main() -> int:
     report(f"phase 3: the same 65536x8192 device solve with no world "
            f"running: median {1e3 * statistics.median(alone_s[1:]):.3f} ms "
            f"on the host clock; median split: {split_text(alone_splits[1:])}")
+    lap("3")
 
     auction_err = check_auction(auction, report)
+    lap("4")
     t0 = time.perf_counter()
     auction_launches, device_plans, solver10k, _ = run_sharded_planner(
         auction, report)
@@ -1213,9 +1986,11 @@ def main() -> int:
            f"plans")
     timed10k = time_device_plan(solver10k, auction, report)
     del solver10k
+    lap("5")
     work_launches, work_solves = run_workloads(gs, report)
     report(f"phase 6: {work_solves} device solves, {work_launches} "
-           f"greedy-sweep launches over the six workloads")
+           f"greedy-sweep launches over the sixteen workloads")
+    lap("6")
 
     res7, wall7, timer7, counts7 = run_native_plane(gs, report)
     report(f"phase 7 beside phase 3 (same run): units/s on the wall clock "
@@ -1229,8 +2004,22 @@ def main() -> int:
            f"(sidecar: {split_text(timer7.splits)}; in-process: "
            f"{split_text(main_timer.splits)})")
     native_launches, native_solves = run_native_workloads(gs, report)
+    lap("7")
     _, counts8 = run_process_world(report)
+    lap("8")
     counts9 = run_launchers(report)
+    lap("9")
+    wall10, planners10, info10 = run_master_failover(gs, report)
+    report(f"phase 10 beside phase 3 (same run): {nunits / wall10:.1f} "
+           f"against {nunits / wall:.1f} units/s")
+    lap("10")
+    _, _, counts11 = run_durable_world(gs, report)
+    lap("11")
+    _, counts12, _ = run_fleet_control(gs, report)
+    lap("12")
+    _, counts13 = run_process_failover(report)
+    lap("13")
+    report(f"all phases: {laps[-1] - laps[0]:.1f} s")
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
@@ -1262,12 +2051,26 @@ def main() -> int:
             "7_native_plane_sidecar": counts7["greedy_sweep_launches"],
             "7_native_workloads": native_launches,
             "8_spawned_master": counts8["greedy_sweep_launches"],
-            "9_launcher_sidecar": counts9["greedy_sweep_launches"]},
+            "9_launcher_sidecar": counts9["greedy_sweep_launches"],
+            "10_failover_planners": {
+                str(r): c["greedy_sweep_launches"]
+                for r, c in sorted(planners10.items())},
+            "11_durable_worlds": [c["greedy_sweep_launches"]
+                                  for c in counts11],
+            "12_fleet_control": counts12["greedy_sweep_launches"],
+            "13_spawned_deputy": counts13["greedy_sweep_launches"]},
         "solves_checked_by_phase": {
             "3_in_process_world": counts["solves_checked"],
             "7_native_plane_sidecar": counts7["solves_checked"],
             "8_spawned_master": counts8["solves_checked"],
-            "9_launcher_sidecar": counts9["solves_checked"]},
+            "9_launcher_sidecar": counts9["solves_checked"],
+            "10_failover_planners": sum(c["solves_kept"]
+                                        for c in planners10.values()),
+            "11_durable_worlds": [c["solves_checked"] for c in counts11],
+            "12_fleet_control": counts12["solves_checked"],
+            "13_spawned_deputy": counts13["solves_checked"]},
+        "failover_10": info10,
+        "phase_walls_s": phase_walls,
         "by_case_65536x8192": by_case,
     }, {
         "name": "auction",

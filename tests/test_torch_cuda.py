@@ -331,3 +331,52 @@ def test_sidecar_solves_on_the_card_equal_host_greedy(card, monkeypatch):
     assert counts["greedy_sweep_launches"] == counts["device_solves"] \
         == counts["solves_checked"]
     assert counts["solves_wrong"] == 0
+
+
+def _failover_economy(ctx):
+    import struct
+    import time
+
+    from adlb_tpu_torch.types import ADLB_SUCCESS
+
+    if ctx.rank == 0:
+        for i in range(200):
+            ctx.put(struct.pack("<q", i), 1)
+    got = []
+    while True:
+        rc, w = ctx.get_work([1])
+        if rc != ADLB_SUCCESS:
+            return got
+        got.append(struct.unpack("<q", w.payload)[0])
+        time.sleep(0.002)
+
+
+@pytest.mark.cuda
+def test_promoted_deputy_plans_on_the_card(card, monkeypatch):
+    """An in-process world loses its master (server index 0 disconnects at
+    its 40th outbound frame): the deputy builds its PlanEngine on the card
+    mid-world and plans there, one kernel launch per device solve, every
+    solve of both planners equal to the numpy twin's."""
+    from adlb_tpu_torch.api import run_world
+    from adlb_tpu_torch.balancer import solve
+    from adlb_tpu_torch.types import InfoKey
+
+    monkeypatch.setattr(solve, "check_every", 1)
+    greedy_sweep.reset_counts()
+    solve.reset_counts()
+    res = run_world(4, 3, [1], _failover_economy, cfg=_planned_cfg(
+        on_server_failure="failover", failover_client_wait=30.0,
+        fault_spec={"seed": 5, "disconnect_server_at": {0: 40}}),
+        timeout=300.0)
+    counts = solve.planner_counts()
+    assert res.server_casualties == [4] and not res.aborted
+    done = {x for v in res.app_results.values() for x in v}
+    lost = sum(s.get(int(InfoKey.FAILOVER_LOST), 0.0)
+               for s in res.server_stats.values())
+    assert len(set(range(200)) - done) <= lost
+    deputy = res.planner[5]
+    assert deputy["device_solves"] > 0 and deputy["host_solves"] == 0
+    assert deputy["greedy_sweep_launches"] == deputy["device_solves"]
+    assert counts["greedy_sweep_launches"] == counts["device_solves"] \
+        == counts["solves_checked"]
+    assert counts["solves_wrong"] == 0

@@ -113,3 +113,22 @@ def test_launcher_exits_nonzero_when_its_sidecar_fails(tmp_path):
     assert "balancer sidecar failed" in p.stderr
     assert "injected planning failure" in p.stderr
     assert _planner(p.stderr)["host_solves"] == 0
+
+
+def test_launcher_reports_whichever_server_planned():
+    """A launcher prints one planner line for each planner it ran: its
+    sidecar, and each Python server that planned (the master's, or a
+    deputy's that failover promoted in a launcher that never hosted the
+    master); a launcher whose servers never planned prints none."""
+    from types import SimpleNamespace
+
+    from adlb_tpu_torch.runtime.launch import planner_reports
+
+    idle = SimpleNamespace(_solver=None, planner_report=lambda: None)
+    promoted = SimpleNamespace(_solver=object(),
+                               planner_report=lambda: {"device_solves": 3})
+    sidecar = ("sidecar ep",
+               SimpleNamespace(planner=lambda: {"device_solves": 5}))
+    assert planner_reports(None, [idle, promoted]) == [{"device_solves": 3}]
+    assert planner_reports(sidecar, [idle]) == [{"device_solves": 5}]
+    assert planner_reports(None, [idle]) == []

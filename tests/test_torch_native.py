@@ -200,3 +200,39 @@ def test_c_clients_on_port_daemons_match_reference():
     assert processed(port_res) == processed(ref_res) == 24
     assert len(stats) == 2
     assert planner == {}  # steal mode: no sidecar
+
+
+@pytest.mark.parametrize("name", ["coinop_native", "trickle_native"])
+def test_native_probe_runs_on_the_port_binaries(name):
+    """The two native probes of this slice: C clients built from
+    ``examples/coinop_c.c`` / ``examples/trickle_c.c`` against the port's
+    libadlb, on the port's daemons, planned by the sidecar on the CPU;
+    every token reaches a worker, as in the JAX package's own run."""
+    if shutil.which("gcc") is None:
+        pytest.skip("no C toolchain")
+    import importlib
+
+    from adlb_tpu_torch.balancer import solve
+
+    mod = importlib.import_module(f"adlb_tpu_torch.workloads.{name}")
+    ref = importlib.import_module(f"adlb_tpu.workloads.{name}")
+    cfg = Config(balancer="tpu", device="cpu", solver_host_threshold=0,
+                 exhaust_check_interval=0.2)
+    host = solve.solve_counts["host"]
+    if name == "coinop_native":
+        args = dict(n_tokens=150, num_app_ranks=4, nservers=2)
+        r = mod.run(cfg=cfg, timeout=120.0, **args)
+        want = ref.run(timeout=120.0, **args)
+        assert r.pops == want.pops == 150
+        assert r.latency_p95_ms >= r.latency_p50_ms > 0 and r.per_worker
+    else:
+        args = dict(n_tasks=60, interval_us=5000, group=2, work_us=1000,
+                    num_app_ranks=6, nservers=3)
+        r = mod.run(cfg=cfg, timeout=120.0, **args)
+        want = ref.run(timeout=120.0, **args)
+        assert r.tasks == want.tasks == 60
+        assert r.dispatch_p90_ms >= r.dispatch_p50_ms > 0
+    assert solve.solve_counts["host"] == host  # no numpy fallback
+    exe = os.path.join(port_build.BUILD_DIR,
+                       "adlb_" + name.replace("_native", "_c"))
+    assert os.path.exists(exe)  # built into the port's build directory

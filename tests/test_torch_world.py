@@ -6,9 +6,10 @@ refusals.
   answers, and the port's solves on the device path.
 * A port world in a fresh interpreter imports neither ``jax`` nor any
   ``adlb_tpu`` module, and no file of the port imports them.
-* ``device="cuda"`` without a card raises; unported features raise
-  ``NotImplementedError``; a failing device solve aborts the world instead
-  of falling back to numpy.
+* ``device="cuda"`` without a card raises; a failing device solve aborts
+  the world instead of falling back to numpy.
+* Every feature of the JAX package's ``Config`` validates in the port, and
+  a planned port world runs with each one on.
 """
 
 import pathlib
@@ -29,7 +30,6 @@ from adlb_tpu_torch.balancer import solve as tsolve
 from adlb_tpu_torch.balancer.distributed import DistributedAssignmentSolver
 from adlb_tpu_torch.balancer.engine import PlanEngine
 from adlb_tpu_torch.runtime.world import Config
-from adlb_tpu_torch.unported import require
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TYPES = (1, 2, 3, 4)
@@ -200,28 +200,94 @@ def test_cuda_without_a_card_raises(monkeypatch):
         PlanEngine(types=TYPES, max_tasks=4, max_requesters=2)
 
 
-@pytest.mark.parametrize("kw", [
-    {"restore_path": "checkpoint"},
-    {"on_server_failure": "failover"},
-    {"spill_dir": "spill"},
-    {"wal_dir": "wal"},
-    {"ops_port": 0},
-    {"control": True},
+def _checkpoint(prefix):
+    """A port world that puts 12 units of type 2, which nothing consumes,
+    and checkpoints them under ``prefix``."""
+
+    def app(ctx):
+        if ctx.rank == 0:
+            for i in range(12):
+                ctx.put(i.to_bytes(4, "little"), 2)
+            rc, n = ctx.checkpoint(prefix)
+            assert rc == adlb_tpu_torch.ADLB_SUCCESS and n == 12
+            ctx.set_problem_done()
+        return None
+
+    adlb_tpu_torch.run_world(num_app_ranks=4, nservers=2, types=[1, 2],
+                             app_fn=app, cfg=Config(device="cpu"),
+                             timeout=60)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("restore_path", {}),
+    ("on_server_failure", {"on_server_failure": "failover"}),
+    ("spill_dir", {"max_malloc_per_server": 1 << 20,
+                   "spill_watermark_frac": 1e-6}),
+    ("wal_dir", {}),
+    ("ops_port", {"ops_port": 0}),
+    ("control", {"control": True, "control_dry_run": True,
+                 "obs_sync_interval": 0.1}),
+    ("slo", {"slo": [{"name": "any", "p99_ms": 1e6, "window_s": 60}],
+             "obs_sync_interval": 0.1}),
+    ("periodic_log_interval", {"periodic_log_interval": 0.1}),
+    ("hedge_budget_frac", {"hedge_budget_frac": 0.05,
+                           "lease_timeout_s": 5.0}),
 ])
-def test_unported_features_raise(kw):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Config(device="cpu", **kw)
+def test_ported_features_validate(name, kw, tmp_path, monkeypatch):
+    """Each feature the port once refused builds its ``Config`` and runs a
+    2-server planned port world: 30 units of type 1, each consumed once
+    (a restored world also drains the 12 checkpointed units of type 2)."""
+    from adlb_tpu_torch.runtime.spill import SpillStore
+
+    kw = dict(kw)
+    restored = 0
+    spilled = []
+    put = SpillStore.put
+    monkeypatch.setattr(SpillStore, "put", lambda store, seqno, blob: (
+        spilled.append(seqno), put(store, seqno, blob))[1])
+    if name == "restore_path":
+        _checkpoint(str(tmp_path / "pool"))
+        kw["restore_path"], restored = str(tmp_path / "pool"), 12
+    elif name in ("spill_dir", "wal_dir"):
+        kw[name] = str(tmp_path / name)
+    cfg = Config(balancer="tpu", device="cpu", solver_host_threshold=0,
+                 put_routing="home", balancer_max_tasks=32,
+                 balancer_max_requesters=8, exhaust_check_interval=0.2, **kw)
+    assert getattr(cfg, name) == getattr(
+        Config(device="cpu", **kw), name) != getattr(Config(device="cpu"),
+                                                      name)
+
+    def app(ctx):
+        if ctx.rank == 0:
+            for i in range(30):
+                ctx.put(i.to_bytes(4, "little"), 1, work_prio=i % 7)
+        got = []
+        while True:
+            rc, r = ctx.reserve([1, 2])
+            if rc != adlb_tpu_torch.ADLB_SUCCESS:
+                return got
+            rc, buf = ctx.get_reserved(r.handle)
+            got.append((r.work_type, int.from_bytes(buf, "little")))
+
+    res = adlb_tpu_torch.run_world(num_app_ranks=4, nservers=2, types=[1, 2],
+                                   app_fn=app, cfg=cfg, timeout=60)
+    assert not res.aborted
+    got = sorted(x for v in res.app_results.values() for x in v)
+    assert got == sorted([(1, i) for i in range(30)]
+                         + [(2, i) for i in range(restored)])
+    if name == "spill_dir":
+        assert spilled, "nothing spilled"
+    if name == "wal_dir":
+        assert any((tmp_path / name).rglob("*")), "no WAL segment written"
 
 
 def test_unported_modules_and_mesh_raise():
     # one device (the CPU): the mesh option plans on the single-device
-    # solver, as the JAX package does on one chip
+    # solver, as the JAX package does on one chip; the JAX package's
+    # other solver backends do not exist in the port
     engine = PlanEngine(types=TYPES, max_tasks=4, max_requesters=2,
                         use_mesh=True, device="cpu")
     assert isinstance(engine.solver, tsolve.AssignmentSolver)
-    with pytest.raises(NotImplementedError, match="runtime.spill"):
-        require("runtime.spill")
-    assert require("runtime.queues").WorkQueue is not None
     with pytest.raises(ValueError, match="solver_backend"):
         Config(device="cpu", solver_backend="pallas")
 
