@@ -4,7 +4,10 @@ plain PyTorch version.
 :func:`auction` computes what the ``lax.while_loop`` of the JAX package's
 fused planning program computes (``adlb_tpu/balancer/distributed.py``,
 ``_build_plan_fn``, ``body`` / ``cond``): from the merged per-type candidate
-lists ``gp, gg [T, L]`` (prio desc, gid asc, ``_NEG`` / ``_I32MAX`` padded),
+lists ``gp, gg [T, L]`` (prio desc, gid asc, ``_NEG`` / ``_I32MAX`` padded;
+the device plan hands over the first ``D = C + m + 1`` columns of the merge,
+:func:`adlb_tpu_torch.balancer.candidates.merged_candidates`, and no round
+reads past index ``C + m``),
 the slot table over host-compacted requester ids ``rwc [T, C]`` (``U = T *
 C`` marks an empty slot), the slots per type ``lens [T]`` and the open
 requesters ``open0 [U + 1]`` bool, it runs at most ``rounds`` auction rounds
@@ -12,10 +15,12 @@ of ``m`` ranks per type and returns ``assigned [T, C + 1]`` int32: the gid
 committed to each slot, or -1 (column C is the program's scatter dump).
 
 * On CUDA tensors it is one launch of ``csrc/auction.cu``, the whole loop
-  inside one thread block, built with ``nvcc`` into ``adlb_tpu_torch/_build/``
-  at first use and loaded with ``ctypes``. :class:`Workspace` keeps the
-  output and, where the working set does not fit in shared memory, the
-  kernel's scratch buffer, from launch to launch.
+  inside one thread block sized to a round's work (the lists staged into
+  shared memory, :data:`BARRIERS_PER_ROUND` block barriers a round), built
+  with ``nvcc`` into ``adlb_tpu_torch/_build/`` at first use and
+  loaded with ``ctypes``. :class:`Workspace` keeps the output and, where
+  the working set does not fit in shared memory, the kernel's scratch
+  buffer, from launch to launch.
 * On CPU tensors it runs :func:`auction_torch`, a line-for-line transcription
   of ``body`` and ``cond`` with a Python loop.
 
@@ -37,6 +42,11 @@ _NEG = -(2**31) + 1  # padding priority, as balancer/solve.py
 _I32MAX = 2**31 - 1
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "auction.cu"
+
+#: the block barriers each round of ``csrc/auction.cu`` waits at: its chain
+#: bound is the rounds run times this times one barrier's latency at the
+#: launch's block size (:attr:`Workspace.threads`)
+BARRIERS_PER_ROUND = 3
 
 #: kernel launches so far, counted on the host at each launch;
 #: chip_smoke.py zeroes it around the main path
@@ -75,6 +85,8 @@ def build() -> Path:
             "adlb_auction": ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                              + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                              + [ctypes.c_void_p] * 3, ctypes.c_int),
+            "adlb_auction_stages_lists": ([ctypes.c_int] * 3, ctypes.c_int),
+            "adlb_auction_threads": ([ctypes.c_int] * 2, ctypes.c_int),
             "adlb_auction_error_string": ([ctypes.c_int], ctypes.c_char_p),
         }
         for name, (argtypes, restype) in sigs.items():
@@ -113,12 +125,17 @@ class Workspace:
     """The kernel's card buffers at one (T, C, m) shape, reused from launch
     to launch: ``out`` (assigned ``[T, C + 1]``, then the rounds run) and,
     where the working set (about 13 T C + 21 T m bytes) does not fit in
-    shared memory, the kernel's scratch buffer. Building the kernel comes
+    shared memory, the kernel's scratch buffer. ``lists_staged``: the
+    lists' first C + m + 1 columns (8 T (C + m + 1) bytes) fit beside the
+    working set in shared memory, and each launch stages them there.
+    ``threads``: the launch's block size. Building the kernel comes
     first."""
 
     def __init__(self, T: int, C: int, m: int, device) -> None:
         build()
         self.shape = (T, C, m)
+        self.lists_staged = bool(_lib.adlb_auction_stages_lists(T, C, m))
+        self.threads = _lib.adlb_auction_threads(T, m)
         self.out = torch.empty((T * (C + 1) + 1,), dtype=torch.int32,
                                device=device)
         nbytes = _lib.adlb_auction_scratch_bytes(T, C, m)

@@ -1,0 +1,260 @@
+"""The sharded planner's candidates and cross-shard merge: a hand-written
+CUDA kernel and its plain PyTorch version.
+
+From the task table cut into shards — ``tp``, ``tt`` [nshards, Sl, K] int32
+(priority, type index) and ``rk`` [nshards, Sl] int32 (the rank behind each
+row) — the candidates are, per shard and per type, the top ``D`` live slots
+by (prio desc, gid asc), gid = rank * K + ki, prio clamped to
+``+-_PRIO_CLIP``, padded with (``_NEG``, ``_I32MAX``): what the JAX
+package's ``_shard_candidates`` computes (``adlb_tpu/balancer/distributed.py``,
+with its stable three-key sort ``_stable_argsort3``). The merged candidates
+are the first ``D`` entries of each type's merge of the shards' lists in
+(prio desc, gid asc) order: the first ``D`` columns of the merge in the
+JAX package's ``_build_plan_fn``, all the auction reads (it never reads past
+index C + m < D).
+
+* :func:`shard_candidates` returns the per-shard lists ``cp, cg`` [nshards, T,
+  D] (the host tier merges them on the host); :func:`merged_candidates`
+  returns ``gp, gg`` [T, D] (the device tier hands them to the auction).
+* On CUDA tensors each is one launch of ``csrc/candidates.cu``, built with
+  ``nvcc`` into ``adlb_tpu_torch/_build/`` at first use and loaded with
+  ``ctypes``; :class:`Workspace` keeps the outputs, the merge's runs and
+  tickets and, where the keys do not fit in shared memory, the kernel's
+  scratch buffer, from launch to launch.
+* On CPU tensors they run the plain version, :func:`_shard_candidates` (all
+  shards in one batch of torch ops) and :func:`_merge_candidates` (one
+  stable sort of a packed key), whose first ``D`` columns are the merged
+  candidates.
+
+There is no fallback between the two: a CUDA tensor launches the kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+
+import torch
+
+from adlb_tpu_torch.balancer import cuda_build
+from adlb_tpu_torch.balancer.solve import (
+    _I32MAX, _NEG, _PRIO_CLIP, _stable_argsort2, _stable_argsort3)
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "candidates.cu"
+
+#: kernel launches so far, counted on the host at each launch;
+#: chip_smoke.py zeroes it around the main path
+launches = 0
+
+_lib = None
+_lib_path = None
+_lib_lock = threading.Lock()
+#: the compiler's output (-Xptxas -v) of the build this process loaded
+build_log = ""
+
+
+def _shard_candidates(tp, tt, rk, T: int, D: int):
+    """Candidate generation of every shard at once: presort each shard's
+    [Sl, K] task block by (type, prio desc, gid) and slice each type's
+    top-D window. gid = rank * K + ki — rank-keyed, NOT row-keyed, so the
+    candidate identity (and hence the greedy tie-break) survives elastic
+    slot reuse.
+
+    tp, tt: [nshards, Sl, K] int32; rk: [nshards, Sl] int32. Returns
+    (cand_prio, cand_gid) [nshards, T, D] int32."""
+    ns, Sl, K = tp.shape
+    Kl = Sl * K
+    dev = tp.device
+    tp, tt = tp.reshape(ns, Kl), tt.reshape(ns, Kl)
+    gids = (rk.reshape(ns, Sl, 1).to(torch.int32) * K
+            + torch.arange(K, dtype=torch.int32, device=dev)).reshape(ns, Kl)
+    live = (tp > _NEG) & (tt >= 0)
+    prio = torch.clamp(tp, -_PRIO_CLIP, _PRIO_CLIP)
+    sort_t = torch.where(live, tt, T)
+    order = _stable_argsort3(sort_t, -prio, gids)
+    s_prio = prio.gather(1, order)
+    s_gid = gids.gather(1, order)
+    # per-type segment sizes; types past T cannot start a segment below T
+    scount = torch.zeros((ns, T + 1), dtype=torch.int32, device=dev)
+    scount.scatter_add_(1, sort_t.clamp(max=T).long(),
+                        torch.ones_like(sort_t))
+    seg_off = torch.cat(
+        [torch.zeros((ns, 1), dtype=torch.int32, device=dev),
+         torch.cumsum(scount[:, :T], dim=1, dtype=torch.int32)], dim=1)
+    idx = seg_off[:, :T, None] + torch.arange(D, dtype=torch.int32,
+                                              device=dev)
+    ok = idx < seg_off[:, 1:, None]
+    idc = torch.clamp(idx, 0, Kl - 1).reshape(ns, T * D).long()
+    cp = torch.where(ok, s_prio.gather(1, idc).view(ns, T, D), _NEG)
+    cg = torch.where(ok, s_gid.gather(1, idc).view(ns, T, D), _I32MAX)
+    return cp, cg
+
+
+def _merge_candidates(cp, cg):
+    """The cross-shard merge: [nshards, T, D] per-shard candidates into
+    global (prio desc, gid asc) lists [T, nshards*D] — the order of
+    ``_merge_shard_major``'s two stable sorts, from one sort."""
+    T = cp.shape[1]
+    ap = cp.permute(1, 0, 2).reshape(T, -1)
+    ag = cg.permute(1, 0, 2).reshape(T, -1)
+    o = _stable_argsort2(-ap, ag)
+    return ap.gather(1, o), ag.gather(1, o)
+
+
+def candidates_torch(tp, tt, rk, T: int, D: int, merge: bool):
+    """The plain version: the per-shard lists ``cp, cg`` [nshards, T, D], or
+    with ``merge`` the first D columns of their merge, ``gp, gg`` [T, D]."""
+    _check(tp, tt, rk)
+    cp, cg = _shard_candidates(tp, tt, rk, T, D)
+    if not merge:
+        return cp, cg
+    gp, gg = _merge_candidates(cp, cg)
+    return gp[:, :D].contiguous(), gg[:, :D].contiguous()
+
+
+def _raise_on(err: int, what: str, lib=None) -> None:
+    if err != 0:
+        text = (lib or _lib).adlb_candidates_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({text})")
+
+
+def build() -> Path:
+    """Compile the kernel (once per source revision), load it and set its
+    shared-memory limit; returns the shared library's path. Raises with the
+    compiler's output when the build fails."""
+    global _lib, _lib_path, build_log
+    if _lib is not None:
+        return _lib_path
+    with _lib_lock:
+        if _lib is not None:
+            return _lib_path
+        out = cuda_build.build_all([SOURCE])[0]
+        build_log = cuda_build.logs.get(out, "")
+        lib = ctypes.PyDLL(str(out))  # keeps the interpreter lock
+        sigs = {
+            "adlb_candidates_init": ([], ctypes.c_int),
+            "adlb_candidates_scratch_bytes": ([ctypes.c_int] * 5,
+                                              ctypes.c_longlong),
+            "adlb_candidates_max_d": ([], ctypes.c_int),
+            "adlb_candidates": ([ctypes.c_void_p] * 3
+                                + [ctypes.c_longlong] * 3
+                                + [ctypes.c_int] * 6
+                                + [ctypes.c_void_p] * 8, ctypes.c_int),
+            "adlb_candidates_error_string": ([ctypes.c_int],
+                                             ctypes.c_char_p),
+        }
+        for name, (argtypes, restype) in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
+        _raise_on(lib.adlb_candidates_init(), "candidates init", lib)
+        _lib, _lib_path = lib, out
+        return out
+
+
+def _check(tp, tt, rk) -> None:
+    """The kernel's input contract (the plain version holds to it too):
+    int32 blocks on one device, each row's K slots contiguous, the shards
+    evenly strided (views of the solver's resident table pass)."""
+    dev = tp.device
+    for name, x, ndim in (("tp", tp, 3), ("tt", tt, 3), ("rk", rk, 2)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, tp on {dev}")
+        if x.dtype != torch.int32 or x.dim() != ndim:
+            raise ValueError(f"{name} must be a {ndim}-d int32 tensor, got "
+                             f"{x.dim()}-d {x.dtype}")
+    ns, Sl, K = tp.shape
+    if tt.shape != tp.shape or rk.shape != (ns, Sl):
+        raise ValueError(f"tp {tuple(tp.shape)}, tt {tuple(tt.shape)} and "
+                         f"rk {tuple(rk.shape)} must be [ns, Sl, K] and "
+                         f"[ns, Sl]")
+    for name, x in (("tp", tp), ("tt", tt), ("rk", rk)):
+        if (x.dim() == 3 and K > 1 and x.stride(2) != 1) \
+                or x.stride(0) != Sl * _row_stride(x):
+            raise ValueError(f"{name} must hold each row's slots contiguous "
+                             f"and its shards evenly strided, got strides "
+                             f"{x.stride()}")
+
+
+def _row_stride(x) -> int:
+    """Elements from one server row to the next (a size-1 row axis may
+    carry any stride: the shard stride is then the row stride)."""
+    return x.stride(1) if x.shape[1] > 1 else x.stride(0)
+
+
+class Workspace:
+    """The kernel's card buffers at one (nshards, Sl, K, T, D) shape, reused
+    from launch to launch: the per-shard lists ``cands`` [2, nshards, T, D]
+    (prio, gid), the merged lists ``gp``, ``gg`` [T, D], the merge's runs
+    and per-type tickets and, where the keys do not fit in shared memory,
+    the kernel's scratch buffer. Building the kernel comes first."""
+
+    def __init__(self, ns: int, Sl: int, K: int, T: int, D: int,
+                 device) -> None:
+        build()
+        if D > _lib.adlb_candidates_max_d():
+            raise ValueError(f"D={D} is past the kernel's "
+                             f"{_lib.adlb_candidates_max_d()}")
+        self.shape = (ns, Sl, K, T, D)
+        i32 = dict(dtype=torch.int32, device=device)
+        self.cands = torch.empty((2, ns, T, D), **i32)
+        self.gp = torch.empty((T, D), **i32)
+        self.gg = torch.empty((T, D), **i32)
+        self.runs = torch.empty((T * ns * D,), dtype=torch.int64,
+                                device=device)
+        self.tickets = torch.zeros((T,), **i32)  # the kernel keeps them 0
+        nbytes = _lib.adlb_candidates_scratch_bytes(ns, Sl, K, T, D)
+        self.scratch = (torch.empty((nbytes,), dtype=torch.uint8,
+                                    device=device) if nbytes else None)
+
+    def launch(self, tp, tt, rk, merge: bool):
+        """One launch on the current stream; returns ``(gp, gg)`` with
+        ``merge``, else the per-shard ``(cp, cg)``."""
+        global launches
+        _check(tp, tt, rk)
+        ns, Sl, K, T, D = self.shape
+        if tuple(tp.shape) != (ns, Sl, K) or tp.device != self.gp.device:
+            raise ValueError(f"workspace for [{ns}, {Sl}, {K}] on "
+                             f"{self.gp.device}, got {tuple(tp.shape)} on "
+                             f"{tp.device}")
+        cp, cg = self.cands[0], self.cands[1]
+        _raise_on(_lib.adlb_candidates(
+            tp.data_ptr(), tt.data_ptr(), rk.data_ptr(), _row_stride(tp),
+            _row_stride(tt), _row_stride(rk), ns, Sl, K, T, D, int(merge),
+            cp.data_ptr(), cg.data_ptr(), self.gp.data_ptr(),
+            self.gg.data_ptr(), self.runs.data_ptr(), self.tickets.data_ptr(),
+            self.scratch.data_ptr() if self.scratch is not None else None,
+            torch.cuda.current_stream(tp.device).cuda_stream),
+            "candidates launch")
+        launches += 1
+        return (self.gp, self.gg) if merge else (cp, cg)
+
+
+def _run(tp, tt, rk, T: int, D: int, merge: bool, work):
+    if tp.device.type == "cuda":
+        if work is None:
+            with torch.cuda.device(tp.device):
+                work = Workspace(*tp.shape, T, D, tp.device)
+        elif work.shape[3:] != (T, D):
+            raise ValueError(f"workspace for (T, D) = {work.shape[3:]}, got "
+                             f"{(T, D)}")
+        return work.launch(tp, tt, rk, merge)
+    if tp.device.type == "cpu":
+        return candidates_torch(tp, tt, rk, T, D, merge)
+    raise ValueError(f"no candidates for device {tp.device}")
+
+
+def shard_candidates(tp, tt, rk, T: int, D: int,
+                     work: Workspace | None = None):
+    """Per-shard candidates ``cp, cg`` [nshards, T, D] int32: on CUDA tensors
+    one launch into ``work`` (a new :class:`Workspace` when None), on CPU
+    tensors the plain version; any other device raises."""
+    return _run(tp, tt, rk, T, D, False, work)
+
+
+def merged_candidates(tp, tt, rk, T: int, D: int,
+                      work: Workspace | None = None):
+    """Merged candidates ``gp, gg`` [T, D] int32: the first D entries of each
+    type's cross-shard merge, as :func:`shard_candidates` dispatches."""
+    return _run(tp, tt, rk, T, D, True, work)

@@ -9,14 +9,13 @@ per-server snapshot deltas (only changed rows ship; unchanged servers are
 skipped by a stamp fast path). Each planning round is three fixed-shape
 steps:
 
-1. **sharded candidate generation** — every shard presorts its task block
-   by (type, priority desc, gid) and slices each type's top-D candidates,
-   D = C + m + 1 (:func:`_shard_candidates`, all shards in one batch).
+1. **sharded candidate generation** — every shard's top-D candidates of
+   each type by (priority desc, gid), D = C + m + 1
+   (:mod:`adlb_tpu_torch.balancer.candidates`).
 2. **cross-shard merge** of the [nshards, T, D] per-shard candidates into
-   global per-type lists ordered by (prio desc, gid asc): one stable sort of
-   a packed key (the JAX package composes two; the order is the same). The
-   elastic slot map decouples row order from rank order, so gid order is
-   part of the key.
+   global per-type lists ordered by (prio desc, gid asc). The elastic slot
+   map decouples row order from rank order, so gid order is part of the
+   key.
 3. **auction rounds** — pure head-pointer logic over the merged per-type
    candidate lists and the [T, C] requester-slot tables (O(plan size)):
    rank-k candidate pairs with the k-th open accepting requester,
@@ -29,17 +28,20 @@ steps:
 The solver runs one of two tiers over those steps:
 
 - ``auction="device"`` (default): all three steps run on the solver's
-  device, the auction as ONE launch of the hand-written CUDA kernel
-  ``csrc/auction.cu`` (:mod:`adlb_tpu_torch.balancer.auction`; its plain
-  torch version on ``device="cpu"``) over host-compacted requester ids
-  (U = T*C distinct ids at most, so the per-round scatters never touch
-  O(requesters) state). A planning round is candidates, one sort, one
-  kernel launch and one [T, C+1] commit-table readback — no per-round host
+  device as two launches of hand-written CUDA kernels — steps 1-2 as one
+  launch of ``csrc/candidates.cu`` (each type's merge cut to its first D
+  entries, all the auction reads), step 3 as one launch of
+  ``csrc/auction.cu`` (:mod:`adlb_tpu_torch.balancer.auction`) over
+  host-compacted requester ids (U = T*C distinct ids at most, so the
+  per-round scatters never touch O(requesters) state); their plain torch
+  versions on ``device="cpu"``. A planning round is two launches and one
+  [T, C+1] commit-table readback — no sort on the card, no per-round host
   merge, no O(S) host work.
 - ``auction="host"``: the retained twin — steps 2-3 on the planner host
   (numpy), with the merged candidate lists cached and patched in place
-  between device sweeps. The twin is what the device tier is fuzz-checked
-  against (exact same commits from the same state).
+  between device sweeps (step 1 on the device, the per-shard lists read
+  back). The twin is what the device tier is fuzz-checked against (exact
+  same commits from the same state).
 
 Task ids are **rank-keyed**: gid = rank * K + ki (``row_rank`` maps the
 resident row to its server rank; int32 on device, so rank * K must stay
@@ -73,58 +75,12 @@ import numpy as np
 import torch
 
 from adlb_tpu_torch.balancer import auction as _auction
+from adlb_tpu_torch.balancer import candidates as _candidates
+from adlb_tpu_torch.balancer.candidates import (  # noqa: F401  (plain versions)
+    _merge_candidates, _shard_candidates)
 from adlb_tpu_torch.balancer.jobdim import bias_vector, expand_types
 from adlb_tpu_torch.balancer.solve import (
-    _I32MAX, _NEG, _PRIO_CLIP, _stable_argsort2, _stable_argsort3,
-    check_device)
-
-
-def _shard_candidates(tp, tt, rk, T: int, D: int):
-    """Candidate generation of every shard at once: presort each shard's
-    [Sl, K] task block by (type, prio desc, gid) and slice each type's
-    top-D window. gid = rank * K + ki — rank-keyed, NOT row-keyed, so the
-    candidate identity (and hence the greedy tie-break) survives elastic
-    slot reuse.
-
-    tp, tt: [nshards, Sl, K] int32; rk: [nshards, Sl] int32. Returns
-    (cand_prio, cand_gid) [nshards, T, D] int32."""
-    ns, Sl, K = tp.shape
-    Kl = Sl * K
-    dev = tp.device
-    tp, tt = tp.reshape(ns, Kl), tt.reshape(ns, Kl)
-    gids = (rk.reshape(ns, Sl, 1).to(torch.int32) * K
-            + torch.arange(K, dtype=torch.int32, device=dev)).reshape(ns, Kl)
-    live = (tp > _NEG) & (tt >= 0)
-    prio = torch.clamp(tp, -_PRIO_CLIP, _PRIO_CLIP)
-    sort_t = torch.where(live, tt, T)
-    order = _stable_argsort3(sort_t, -prio, gids)
-    s_prio = prio.gather(1, order)
-    s_gid = gids.gather(1, order)
-    # per-type segment sizes; types past T cannot start a segment below T
-    scount = torch.zeros((ns, T + 1), dtype=torch.int32, device=dev)
-    scount.scatter_add_(1, sort_t.clamp(max=T).long(),
-                        torch.ones_like(sort_t))
-    seg_off = torch.cat(
-        [torch.zeros((ns, 1), dtype=torch.int32, device=dev),
-         torch.cumsum(scount[:, :T], dim=1, dtype=torch.int32)], dim=1)
-    idx = seg_off[:, :T, None] + torch.arange(D, dtype=torch.int32,
-                                              device=dev)
-    ok = idx < seg_off[:, 1:, None]
-    idc = torch.clamp(idx, 0, Kl - 1).reshape(ns, T * D).long()
-    cp = torch.where(ok, s_prio.gather(1, idc).view(ns, T, D), _NEG)
-    cg = torch.where(ok, s_gid.gather(1, idc).view(ns, T, D), _I32MAX)
-    return cp, cg
-
-
-def _merge_candidates(cp, cg):
-    """The device tier's cross-shard merge: [nshards, T, D] per-shard
-    candidates into global (prio desc, gid asc) lists [T, nshards*D] — the
-    order of :func:`_merge_shard_major`'s two stable sorts, from one sort."""
-    T = cp.shape[1]
-    ap = cp.permute(1, 0, 2).reshape(T, -1)
-    ag = cg.permute(1, 0, 2).reshape(T, -1)
-    o = _stable_argsort2(-ap, ag)
-    return ap.gather(1, o), ag.gather(1, o)
+    _I32MAX, _NEG, _PRIO_CLIP, check_device)
 
 
 def _reqwin(req_mask, req_valid, T: int, C: int, perm=None):
@@ -345,9 +301,9 @@ def build_distributed_solver(nshards: int, rounds: int = 16,
         # row index as rank: the functional path has no slot reuse, so
         # gid = si * K + ki exactly as before
         rk = torch.arange(task_prio.shape[0], dtype=torch.int32, device=dev)
-        cp, cg = _shard_candidates(tp.view(nshards, Sl, K),
-                                   tt.view(nshards, Sl, K),
-                                   rk.view(nshards, Sl), T, D)
+        cp, cg = _candidates.shard_candidates(tp.view(nshards, Sl, K),
+                                              tt.view(nshards, Sl, K),
+                                              rk.view(nshards, Sl), T, D)
         both = torch.stack((cp, cg)).cpu().numpy()
         gp, gg = _merge_shard_major(both[0], both[1])
         rw, lens = _reqwin(req_mask, req_valid, T, C)
@@ -518,7 +474,9 @@ class DistributedAssignmentSolver:
         self._open0: Optional[np.ndarray] = None
         self._reqbuf: Optional[_Staged] = None
         self._dev_req: Optional[tuple] = None
-        # the auction kernel's buffers (device tier on a card)
+        # the kernels' buffers on a card: the candidates (both tiers) and
+        # the auction (device tier)
+        self._cand_work: Optional[_candidates.Workspace] = None
         self._work: Optional[_auction.Workspace] = None
         # merged per-type candidate lists [T, nshards*D] (prio desc, gid
         # asc, _NEG-padded): materialized by the device sweep, patched
@@ -580,6 +538,8 @@ class DistributedAssignmentSolver:
             .reshape(S, 2 * K + 2)
         self._rows_dev = self._rows.dev.view(torch.int32)[:S * (2 * K + 2)] \
             .view(S, 2 * K + 2)
+        if dev.type == "cuda":
+            self._cand_work = _candidates.Workspace(ns, Sl, K, T, self.D, dev)
         if self.auction == "device":
             U = T * C
             self._req_bytes = 4 * T * C + 4 * T + U + 1
@@ -1002,7 +962,8 @@ class DistributedAssignmentSolver:
         device plus the ONE device->host transfer of the planning round,
         re-materializing the merged candidate lists."""
         t0 = time.perf_counter()
-        cp, cg = _shard_candidates(*self._dev_blocks, self.T, self.D)
+        cp, cg = _candidates.shard_candidates(*self._dev_blocks, self.T,
+                                              self.D, work=self._cand_work)
         both = torch.stack((cp, cg)).cpu().numpy()
         self._gp, self._gg = _merge_shard_major(both[0], both[1])
         self._dropped_ranks.clear()  # re-materialized from live rows
@@ -1024,11 +985,11 @@ class DistributedAssignmentSolver:
         self.last_sweep_ms = (time.perf_counter() - t0) * 1e3
 
     def _device_plan(self) -> np.ndarray:
-        """The device-tier planning round: candidates of every shard, the
-        merge (one sort), one auction launch (the plain version on the
-        CPU), one [T, C+1] readback."""
-        cp, cg = _shard_candidates(*self._dev_blocks, self.T, self.D)
-        gp, gg = _merge_candidates(cp, cg)
+        """The device-tier planning round: one candidates launch (every
+        shard's candidates and their merge, cut to [T, D]), one auction
+        launch (the plain versions on the CPU), one [T, C+1] readback."""
+        gp, gg = _candidates.merged_candidates(
+            *self._dev_blocks, self.T, self.D, work=self._cand_work)
         rwc, lens, open0 = self._dev_req
         assigned = _auction.auction(gp, gg, rwc, lens, open0, self.rounds,
                                     self.m, work=self._work)

@@ -173,6 +173,7 @@ def run_sweep(scales=None, reps: int = 40, nshards: int = 8,
             row["host_tier_p50_ms"] = pct(twin_lat, 0.50)
             row["host_tier_p99_ms"] = pct(twin_lat, 0.99)
             row["rounds_equal_to_host_tier"] = reps
+            row["host_tier_sweeps"] = twin.sweep_count
         rows.append(row)
         print(
             f"plan-sweep {S:5d} servers x {R:4d} reqs "

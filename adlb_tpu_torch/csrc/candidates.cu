@@ -1,0 +1,412 @@
+// Candidates of the sharded planner, with the cross-shard merge, hand-written
+// for Hopper (sm_90a).
+//
+// Replaces two device steps of the JAX package's planning program
+// (adlb_tpu/balancer/distributed.py):
+//   * _shard_candidates (:88): per shard, a stable three-key sort of the
+//     shard's [Sl, K] task block by (type, prio desc, gid) (_stable_argsort3,
+//     adlb_tpu/balancer/solve.py:53) and a top-D window cut from each type's
+//     segment, giving cand (prio, gid) [nshards, T, D];
+//   * the cross-shard merge of _build_plan_fn (:170-179): the all_gather and
+//     two stable sorts of [T, nshards * D] into per-type (prio desc, gid asc)
+//     lists.
+// gid = rank * K + ki (int32, wrapping as the JAX program's does); prio is
+// clamped to +-1e9; a slot is live when prio > -(2^31) + 1 and its type is
+// >= 0; padding is (-(2^31) + 1, 2^31 - 1).
+//
+// One block per (shard, type): nshards * T blocks. Each (prio, gid) pair is
+// one 64-bit key whose unsigned order is (prio desc, gid asc), so each block
+//   1. streams its shard's slots (several loads in flight per thread; the T
+//      blocks of a shard share the rows through L2), keeps the live slots of
+//      its type and compacts their keys with warp ballots and one
+//      shared-memory atomic per warp;
+//   2. when more than D are live, finds the D-th smallest key by a radix
+//      select, 8 bits a pass over a 256-bin shared-memory histogram (lanes
+//      that share a bin add once, __match_any_sync), stopping at the first
+//      pass whose bin is taken whole;
+//   3. compacts the survivors (at most D) and sorts them with a bitonic sort
+//      in shared memory, padded to a power of two with the padding key.
+// Equal keys are equal (prio, gid) pairs, so which of several equal keys
+// survives cannot change the output: the result is the JAX sort's, whatever
+// its tie order.
+//
+// With `merge` set, the block writes its sorted keys to `runs` [T, nshards,
+// D] instead of the per-shard lists, and the last block of each type to
+// finish (a __threadfence, then a per-type atomic ticket that the kernel
+// resets itself) merges that type's nshards runs: each key's place in the
+// merge is its own index plus, in every other run, the count of smaller keys
+// (of keys not larger, for the runs before its own), by binary search over
+// the runs staged in shared memory. Keys placed at or past D are dropped. The
+// first D entries of the full merge of [T, nshards * D] are the first D of
+// the top-D runs (an entry of the global top D is in its own shard's top D),
+// and the auction never reads past index C + m < D, so gp, gg [T, D] are all
+// the device plan needs: one launch, no sort left on the card.
+//
+// What bounds it on this card: the bytes are the task table read once (at the
+// 10k-row shape 8 x 1250 x 16 slots, 1.3 MB) and [T, D] written, well under a
+// microsecond of HBM time; the block's work is a chain of barrier-separated
+// passes (the radix passes only when a type has more than D live slots in a
+// shard, about log2(D)^2 / 2 bitonic steps over the survivors, the merge's
+// binary searches in the last block of each type), so it is latency bound.
+// The keys live in shared memory when the shard's slots and the runs fit
+// (the 10k-row shape: 20,000 keys, 160 KB), else in a scratch buffer in
+// device memory that the caller provides (adlb_candidates_scratch_bytes);
+// the kernel is instantiated once for each.
+
+#include <cstddef>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+typedef unsigned long long u64;
+
+constexpr int kThreads = 1024;
+constexpr int kUnroll = 4;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNeg = -2147483647;  // padding priority, -(2^31) + 1
+constexpr int kPrioClip = 1000000000;
+constexpr int kMaxD = 4096;
+// The key of the padding pair (kNeg, 2^31 - 1): larger than any live key.
+constexpr u64 kPad = 0xFFFFFFFEFFFFFFFFull;
+
+__host__ __device__ __forceinline__ u64 make_key(int p, int g) {
+  const unsigned hi = ~((unsigned)p ^ 0x80000000u);
+  const unsigned lo = (unsigned)g ^ 0x80000000u;
+  return ((u64)hi << 32) | lo;
+}
+__device__ __forceinline__ int key_prio(u64 k) {
+  return (int)(~(unsigned)(k >> 32) ^ 0x80000000u);
+}
+__device__ __forceinline__ int key_gid(u64 k) {
+  return (int)((unsigned)k ^ 0x80000000u);
+}
+
+__host__ __device__ inline int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// Byte offsets of the dynamic shared memory: the sort buffer (a power of two
+// >= D keys) and, in the shared variant, the key array (the shard's slots, or
+// the nshards runs in the merge, whichever is larger).
+struct Layout {
+  size_t sorted, keys, bytes;
+  int P, cap;
+};
+
+__host__ __device__ inline Layout layout(int ns, int Sl, int K, int D,
+                                         bool shared_keys) {
+  Layout l;
+  l.P = pow2_at_least(D);
+  const long long slots = (long long)Sl * K, runs = (long long)ns * D;
+  l.cap = (int)(slots > runs ? slots : runs);
+  l.sorted = 0;
+  l.keys = 8 * (size_t)l.P;
+  l.bytes = l.keys + (shared_keys ? 8 * (size_t)l.cap : 0);
+  return l;
+}
+
+// Dynamic shared memory the shared variant may take (set at init).
+int g_max_dyn = 0;
+
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads, 1)
+candidates_kernel(const int* __restrict__ tp, const int* __restrict__ tt,
+                  const int* __restrict__ rk, long long tp_rs, long long tt_rs,
+                  long long rk_rs, int ns, int Sl, int K, int T, int D,
+                  int merge, int* __restrict__ cp, int* __restrict__ cg,
+                  int* __restrict__ gp, int* __restrict__ gg,
+                  u64* __restrict__ runs, int* __restrict__ counters,
+                  u64* __restrict__ scratch) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned hist[256];
+  __shared__ int s_n, s_cnt, s_eq, s_digit, s_before, s_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1;
+  const int s = blockIdx.x / T, t = blockIdx.x - s * T;
+  const Layout lay = layout(ns, Sl, K, D, kShared);
+  u64* sorted = (u64*)(smem + lay.sorted);
+  u64* keys = kShared ? (u64*)(smem + lay.keys)
+                      : scratch + (size_t)blockIdx.x * lay.cap;
+  const int nslots = Sl * K;
+
+  if (tid == 0) {
+    s_n = 0;
+    s_cnt = 0;
+    s_eq = 0;
+  }
+  __syncthreads();
+
+  // 1. the live slots of type t in shard s, one key each, compacted
+  for (int i0 = 0; i0 < nslots; i0 += kThreads * kUnroll) {
+    int pv[kUnroll], tv[kUnroll], gv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * kThreads + tid;
+      pv[u] = kNeg;
+      tv[u] = -1;
+      gv[u] = 0;
+      if (i < nslots) {
+        const int row = i / K, ki = i - row * K;
+        const size_t r = (size_t)s * Sl + row;
+        pv[u] = tp[r * tp_rs + ki];
+        tv[u] = tt[r * tt_rs + ki];
+        gv[u] = (int)((unsigned)rk[r * rk_rs] * (unsigned)K + (unsigned)ki);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const bool hit = pv[u] > kNeg && tv[u] == t;
+      const unsigned b = __ballot_sync(kFull, hit);
+      int base = 0;
+      if (lane == 0 && b) base = atomicAdd(&s_n, __popc(b));
+      base = __shfl_sync(kFull, base, 0);
+      if (hit) {
+        const int p = min(max(pv[u], -kPrioClip), kPrioClip);
+        keys[base + __popc(b & below)] = make_key(p, gv[u]);
+      }
+    }
+  }
+  __syncthreads();
+  const int n = s_n;
+
+  // 2. the survivors: every key whose bits under `mask` are below `prefix`,
+  // and `rank` of the keys equal to it there (all n when n <= D)
+  u64 prefix = 0, mask = 0;
+  int rank = n;
+  if (n > D) {
+    rank = D;
+    for (int shift = 56; shift >= 0; shift -= 8) {
+      for (int i = tid; i < 256; i += kThreads) hist[i] = 0;
+      __syncthreads();
+      for (int i0 = 0; i0 < n; i0 += kThreads) {
+        const int i = i0 + tid;
+        int d = -1;
+        if (i < n) {
+          const u64 k = keys[i];
+          if ((k & mask) == prefix) d = (int)((k >> shift) & 255u);
+        }
+        const unsigned peers = __match_any_sync(kFull, d);
+        if (d >= 0 && lane == __ffs(peers) - 1)
+          atomicAdd(&hist[d], (unsigned)__popc(peers));
+      }
+      __syncthreads();
+      if (warp == 0) {
+        unsigned c[8], sum = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          c[j] = hist[lane * 8 + j];
+          sum += c[j];
+        }
+        unsigned incl = sum;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const unsigned v = __shfl_up_sync(kFull, incl, o);
+          if (lane >= o) incl += v;
+        }
+        const unsigned excl = incl - sum, want = (unsigned)rank;
+        if (excl < want && want <= incl) {
+          unsigned acc = excl;
+          int j = 0;
+          while (acc + c[j] < want) acc += c[j++];
+          s_digit = lane * 8 + j;
+          s_before = (int)acc;
+        }
+      }
+      __syncthreads();
+      const int digit = s_digit;
+      rank -= s_before;
+      prefix |= (u64)digit << shift;
+      mask |= (u64)255 << shift;
+      const bool whole = (unsigned)rank == hist[digit];
+      __syncthreads();  // hist is cleared next pass
+      if (whole) break;  // every key of this bin survives
+    }
+  }
+  const bool all = n <= D;
+  for (int i0 = 0; i0 < n; i0 += kThreads) {
+    const int i = i0 + tid;
+    bool keep = false, eq = false;
+    u64 k = 0;
+    if (i < n) {
+      k = keys[i];
+      const u64 hi = k & mask;
+      keep = all || hi < prefix;
+      eq = !keep && hi == prefix;
+    }
+    const unsigned be = __ballot_sync(kFull, eq);
+    if (be) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(&s_eq, __popc(be));
+      base = __shfl_sync(kFull, base, 0);
+      if (eq) keep = base + __popc(be & below) < rank;
+    }
+    const unsigned bk = __ballot_sync(kFull, keep);
+    if (bk) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(&s_cnt, __popc(bk));
+      base = __shfl_sync(kFull, base, 0);
+      if (keep) sorted[base + __popc(bk & below)] = k;
+    }
+  }
+  const int take = all ? n : D;
+  for (int i = take + tid; i < lay.P; i += kThreads) sorted[i] = kPad;
+  __syncthreads();
+
+  // 3. bitonic sort of the survivors, ascending
+  const int P = pow2_at_least(take > 1 ? take : 1);
+  for (int k = 2; k <= P; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < (P >> 1); i += kThreads) {
+        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1)), hi = lo + j;
+        const u64 a = sorted[lo], b = sorted[hi];
+        if ((a > b) == ((lo & k) == 0)) {
+          sorted[lo] = b;
+          sorted[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  if (!merge) {
+    const size_t at = ((size_t)s * T + t) * D;
+    for (int i = tid; i < D; i += kThreads) {
+      const u64 k = sorted[i];
+      cp[at + i] = key_prio(k);
+      cg[at + i] = key_gid(k);
+    }
+    return;
+  }
+  u64* run = runs + ((size_t)t * ns + s) * D;
+  for (int i = tid; i < D; i += kThreads) run[i] = sorted[i];
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&counters[t], 1) == ns - 1;
+  __syncthreads();
+  if (!s_last) return;
+
+  // 4. the last block of type t merges the type's nshards runs
+  if (tid == 0) counters[t] = 0;  // ready for the next launch
+  const int L = ns * D;
+  const u64* src = runs + (size_t)t * L;
+  for (int i = tid; i < L; i += kThreads) keys[i] = __ldcg(src + i);
+  for (int i = tid; i < D; i += kThreads) sorted[i] = kPad;
+  __syncthreads();
+  for (int e = tid; e < L; e += kThreads) {
+    const u64 k = keys[e];
+    if (k == kPad) continue;  // padding: the output starts padded
+    const int r = e / D;
+    int pos = e - r * D;
+    for (int q = 0; q < ns && pos < D; ++q) {
+      if (q == r) continue;
+      const u64* other = keys + (size_t)q * D;
+      int lo = 0, hi = D - pos;  // counts past D - pos place it past D
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        const u64 v = other[mid];
+        if (q < r ? v <= k : v < k)
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      pos += lo;
+    }
+    if (pos < D) sorted[pos] = k;
+  }
+  __syncthreads();
+  for (int i = tid; i < D; i += kThreads) {
+    const u64 k = sorted[i];
+    gp[(size_t)t * D + i] = key_prio(k);
+    gg[(size_t)t * D + i] = key_gid(k);
+  }
+}
+
+bool fits_shared(int ns, int Sl, int K, int D) {
+  return layout(ns, Sl, K, D, true).bytes <= (size_t)g_max_dyn;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Once per process, after loading: lets both variants use all the shared
+// memory a block may have. Returns the CUDA error code.
+int adlb_candidates_init() {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, candidates_kernel<true>);
+  if (err != cudaSuccess) return (int)err;
+  g_max_dyn = optin - (int)attr.sharedSizeBytes;
+  err = cudaFuncSetAttribute(candidates_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             g_max_dyn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(candidates_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               g_max_dyn);
+  return (int)err;
+}
+
+// Bytes of device scratch a launch at (nshards, Sl, K, T, D) needs: 0 when
+// the keys fit in shared memory (after adlb_candidates_init), else one key
+// array per block.
+long long adlb_candidates_scratch_bytes(int ns, int Sl, int K, int T, int D) {
+  if (fits_shared(ns, Sl, K, D)) return 0;
+  return 8LL * ns * T * layout(ns, Sl, K, D, false).cap;
+}
+
+// The largest D a launch takes (the sort buffer's power of two stays in
+// shared memory).
+int adlb_candidates_max_d() { return kMaxD; }
+
+// Launches the candidates on `stream`. tp, tt: int32, element (shard, row,
+// ki) at (shard * Sl + row) * *_rs + ki; rk: int32 at (shard * Sl + row) *
+// rk_rs. merge == 0: writes cp, cg [nshards, T, D]; merge != 0: writes gp, gg
+// [T, D], with runs holding T * nshards * D keys and counters T ints that
+// are 0 before the first launch (the kernel leaves them 0). `scratch` holds
+// adlb_candidates_scratch_bytes bytes, or is null when that is 0. Returns
+// the CUDA error code of the launch; does not synchronise.
+int adlb_candidates(const int* tp, const int* tt, const int* rk,
+                    long long tp_rs, long long tt_rs, long long rk_rs, int ns,
+                    int Sl, int K, int T, int D, int merge, int* cp, int* cg,
+                    int* gp, int* gg, u64* runs, int* counters, u64* scratch,
+                    void* stream) {
+  if (ns < 1 || Sl < 1 || K < 1 || T < 1 || D < 1 || D > kMaxD ||
+      (long long)Sl * K >= (1LL << 31) || (long long)ns * D >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if (merge ? (gp == nullptr || gg == nullptr || runs == nullptr ||
+               counters == nullptr)
+            : (cp == nullptr || cg == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(ns * T));
+  if (fits_shared(ns, Sl, K, D)) {
+    candidates_kernel<true><<<grid, kThreads, layout(ns, Sl, K, D, true).bytes,
+                              (cudaStream_t)stream>>>(
+        tp, tt, rk, tp_rs, tt_rs, rk_rs, ns, Sl, K, T, D, merge, cp, cg, gp,
+        gg, runs, counters, nullptr);
+  } else {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    candidates_kernel<false>
+        <<<grid, kThreads, layout(ns, Sl, K, D, false).bytes,
+           (cudaStream_t)stream>>>(tp, tt, rk, tp_rs, tt_rs, rk_rs, ns, Sl, K,
+                                   T, D, merge, cp, cg, gp, gg, runs, counters,
+                                   scratch);
+  }
+  return (int)cudaGetLastError();
+}
+
+const char* adlb_candidates_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

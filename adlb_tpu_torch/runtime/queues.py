@@ -22,6 +22,7 @@ The semantic contract preserved from the reference:
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import heapq
 import time
@@ -89,6 +90,53 @@ class WorkUnit:
         return self.spill_len if self.spilled else len(self.payload)
 
 
+class _SortedKeys:
+    """A sorted set of unique keys in buckets of about ``LOAD``: an insert or
+    a delete costs a bisect over the buckets' maxima plus one within a
+    bucket, and the first k keys are a walk of the first buckets."""
+
+    LOAD = 512
+
+    def __init__(self, keys) -> None:
+        keys = sorted(keys)
+        self._b = [keys[i:i + self.LOAD]
+                   for i in range(0, len(keys), self.LOAD)]
+        self._max = [b[-1] for b in self._b]
+
+    def add(self, key) -> None:
+        if not self._b:
+            self._b, self._max = [[key]], [key]
+            return
+        i = min(bisect.bisect_left(self._max, key), len(self._b) - 1)
+        b = self._b[i]
+        bisect.insort(b, key)
+        self._max[i] = b[-1]
+        if len(b) > 2 * self.LOAD:
+            self._b[i:i + 1] = [b[:self.LOAD], b[self.LOAD:]]
+            self._max[i:i + 1] = [b[self.LOAD - 1], b[-1]]
+
+    def discard(self, key) -> None:
+        i = bisect.bisect_left(self._max, key)
+        if i == len(self._b):
+            return
+        b = self._b[i]
+        j = bisect.bisect_left(b, key)
+        if j < len(b) and b[j] == key:
+            del b[j]
+            if b:
+                self._max[i] = b[-1]
+            else:
+                del self._b[i], self._max[i]
+
+    def first(self, k: int) -> list:
+        out: list = []
+        for b in self._b:
+            if len(out) >= k:
+                break
+            out.extend(b[:k - len(out)])
+        return out
+
+
 class WorkQueue:
     """Indexed priority work queue (the reference's ``wq``)."""
 
@@ -108,6 +156,9 @@ class WorkQueue:
         # O(1) availability signal for the balancer's snapshot gating:
         # number of unpinned untargeted units (exact, unlike the lazy heaps)
         self.untargeted_avail = 0
+        # the unpinned untargeted units in snapshot order, (-prio, seqno):
+        # built at the first snapshot_untargeted() call, kept from then on
+        self._avail: Optional[_SortedKeys] = None
 
     # -- insertion / removal -------------------------------------------------
 
@@ -121,6 +172,8 @@ class WorkQueue:
             self._index(unit)
             if unit.target_rank < 0:
                 self.untargeted_avail += 1
+                if self._avail is not None:
+                    self._avail.add((-unit.prio, unit.seqno))
 
     def _index(self, unit: WorkUnit) -> None:
         key = (-unit.prio, unit.seqno)
@@ -143,6 +196,8 @@ class WorkQueue:
         self.total_bytes -= len(unit.payload)
         if not unit.pinned and unit.target_rank < 0:
             self.untargeted_avail -= 1
+            if self._avail is not None:
+                self._avail.discard((-unit.prio, unit.seqno))
         return unit  # stale heap entries are skipped lazily
 
     # -- pin discipline ------------------------------------------------------
@@ -151,6 +206,8 @@ class WorkQueue:
         unit = self._units[seqno]
         if not unit.pinned and unit.target_rank < 0:
             self.untargeted_avail -= 1
+            if self._avail is not None:
+                self._avail.discard((-unit.prio, unit.seqno))
         unit.pinned = True
         unit.pin_rank = rank
         # heap entry goes stale; skipped on pop
@@ -159,6 +216,8 @@ class WorkQueue:
         unit = self._units[seqno]
         if unit.pinned and unit.target_rank < 0:
             self.untargeted_avail += 1
+            if self._avail is not None:
+                self._avail.add((-unit.prio, unit.seqno))
         unit.pinned = False
         unit.pin_rank = -1
         self._index(unit)
@@ -294,6 +353,25 @@ class WorkQueue:
     def units(self) -> Iterable[WorkUnit]:
         return self._units.values()
 
+    def snapshot_untargeted(self, cap: int) -> list[tuple[int, int, int, int]]:
+        """Top-``cap`` available (unpinned, untargeted) units by priority,
+        FIFO among equals — (seqno, type, prio, payload length): the
+        balancer snapshot's task list, as the native core's twin
+        (adlb_tpu_torch/native/wq.py) gives it. The JAX package walks
+        the whole queue for it at every snapshot; here the available
+        units stay sorted from the first call on, so a snapshot costs
+        O(cap)."""
+        if self._avail is None:
+            self._avail = _SortedKeys(
+                (-u.prio, u.seqno) for u in self._units.values()
+                if not u.pinned and u.target_rank < 0)
+        units = self._units
+        out = []
+        for _, seqno in self._avail.first(cap):
+            u = units[seqno]
+            out.append((seqno, u.work_type, u.prio, u.payload_len))
+        return out
+
     def depth_sample(self) -> tuple[int, int, int]:
         """(count, unpinned-untargeted, bytes) at O(1) — the periodic
         observability tick's queue-depth gauges (the native core has an
@@ -320,6 +398,10 @@ class PartitionedWorkQueue:
         self._parts: dict[int, object] = {0: factory()}
         self._job_of: dict[int, int] = {}  # seqno -> job, job != 0 only
         self._max_count = 0
+        #: the spill tier's victim index (runtime/spill.py SpillIndex), set
+        #: by a server with Config(spill_dir); kept here, where units
+        #: enter, leave, pin and unpin
+        self.spill_index = None
 
     # -- partition plumbing --------------------------------------------------
 
@@ -353,6 +435,8 @@ class PartitionedWorkQueue:
         units = list(part.units())
         for u in units:
             self._job_of.pop(u.seqno, None)
+            if self.spill_index is not None:
+                self.spill_index.discard(u.seqno)
         return units
 
     # -- insertion / removal / pin (seqno-routed) ----------------------------
@@ -368,6 +452,8 @@ class PartitionedWorkQueue:
             self._job_of[unit.seqno] = job
         part.add(unit)
         self._max_count = max(self._max_count, self.count)
+        if self.spill_index is not None:
+            self.spill_index.offer(unit)
 
     def get(self, seqno: int) -> Optional[WorkUnit]:
         return self._part_of(seqno).get(seqno)
@@ -375,13 +461,20 @@ class PartitionedWorkQueue:
     def remove(self, seqno: int) -> WorkUnit:
         part = self._part_of(seqno)
         self._job_of.pop(seqno, None)
+        if self.spill_index is not None:
+            self.spill_index.discard(seqno)
         return part.remove(seqno)
 
     def pin(self, seqno: int, rank: int) -> None:
         self._part_of(seqno).pin(seqno, rank)
+        if self.spill_index is not None:
+            self.spill_index.discard(seqno)
 
     def unpin(self, seqno: int) -> None:
-        self._part_of(seqno).unpin(seqno)
+        part = self._part_of(seqno)
+        part.unpin(seqno)
+        if self.spill_index is not None:
+            self.spill_index.offer(part.get(seqno))
 
     # -- matching ------------------------------------------------------------
 
@@ -473,12 +566,10 @@ class PartitionedWorkQueue:
             b += pb
         return c, a, b
 
-    def __getattr__(self, name):
-        if name == "snapshot_untargeted":
-            # balancer fast path: present only when the job-0 partition
-            # (the native core) provides it — callers getattr-probe
-            return getattr(self._parts[0], "snapshot_untargeted")
-        raise AttributeError(name)
+    def snapshot_untargeted(self, cap: int) -> list:
+        """The balancer snapshot's task list: job 0's best ``cap``
+        available units (job partitions ride ``_merge_job_tasks``)."""
+        return self._parts[0].snapshot_untargeted(cap)
 
 
 @dataclasses.dataclass

@@ -307,9 +307,10 @@ class Server:
         # fault back in at delivery time — see _maybe_spill/_unspill
         self.spill = None
         if cfg.spill_dir is not None:
-            from adlb_tpu_torch.runtime.spill import SpillStore
+            from adlb_tpu_torch.runtime.spill import SpillIndex, SpillStore
 
             self.spill = SpillStore(cfg.spill_dir, self.rank)
+            self.wq.spill_index = SpillIndex()
         # lease per pinned unit (owner rank, lease id, grant time): under
         # on_worker_failure="reclaim" a dead owner's leases turn back into
         # queued work instead of blocking exhaustion forever
@@ -1647,33 +1648,24 @@ class Server:
         """Move cold parked payloads to disk until ``incoming`` more
         bytes fit under the spill watermark. Victims are unpinned
         resident payloads, largest first (fewest records for the most
-        relief), oldest first among equals (cold before hot). O(wq)
-        scan — runs only above the watermark, where the alternative is
-        backpressure."""
+        relief), oldest first among equals (cold before hot), at most 64
+        a pass: the JAX package's ``nsmallest(64, ...)`` over the whole
+        queue, taken here from the queue's resident index
+        (``wq.spill_index``, runtime/spill.py), so a put above the
+        watermark costs O(victims * log n) and reads no other unit."""
         if self.spill is None or self.mem.max_bytes <= 0:
             return
         frac = self.cfg.spill_watermark_frac or self.mem.soft_frac
         need = self.mem.curr + incoming - frac * self.mem.max_bytes
         if need <= 0:
             return
-        # top-K by (size desc, age) instead of a full sort: the scan is
-        # already O(wq) per call under sustained pressure, and K=64
-        # victims per pass cover any realistic per-put deficit (a
-        # size-ordered resident index is the follow-up if profiles ever
-        # show this pass on top)
-        import heapq as _heapq
-
-        cands = _heapq.nsmallest(
-            64,
-            (
-                (-len(u.payload), u.time_stamp, u.seqno, u)
-                for u in self.wq.units()
-                if not u.pinned and not u.spilled and len(u.payload) > 0
-            ),
-        )
+        index = self.wq.spill_index
         freed = 0
-        for _nlen, _ts, _sq, u in cands:
+        for _ in range(64):
             if freed >= need:
+                break
+            u = index.pop()
+            if u is None:
                 break
             freed += len(u.payload)
             self._spill_unit(u)
@@ -3843,23 +3835,11 @@ class Server:
             self._pending_delta.clear()
             self._delta_deadline = float("inf")
             K = self.cfg.balancer_max_tasks
-            snapshot_fast = getattr(self.wq, "snapshot_untargeted", None)
-            if snapshot_fast is not None:
-                tasks = snapshot_fast(K)  # sorted in C++
-            else:
-                import heapq as _heapq
-
-                # O(n log K), not a full sort: runs on the reactor thread
-                tasks = _heapq.nsmallest(
-                    K,
-                    (
-                        (-u.prio, u.seqno, u.work_type, u.payload_len)
-                        for u in self.wq.units()
-                        if not u.pinned and u.target_rank < 0
-                        and getattr(u, "job", 0) == 0
-                    ),
-                )
-                tasks = [(s, t, -np_, ln) for np_, s, t, ln in tasks]
+            # job 0's best K by (prio desc, seqno): the C++ core sorts in
+            # native code, and the Python queue (which the spill tier
+            # forces) keeps them sorted, so no Python walk of the queue
+            # runs on the reactor thread
+            tasks = self.wq.snapshot_untargeted(K)
             tasks = self._merge_job_tasks(tasks, K)
         J = self.cfg.balancer_max_jobs
         reqs = [

@@ -24,6 +24,7 @@ rewriting live records once dead bytes dominate.
 
 from __future__ import annotations
 
+import heapq
 import os
 import struct
 import zlib
@@ -153,3 +154,58 @@ class SpillStore:
             os.unlink(self.path)
         except OSError:
             pass
+
+
+class SpillIndex:
+    """The spill tier's resident victim index: every unpinned, unspilled
+    queued unit with a non-empty payload, in the order
+    ``Server._maybe_spill`` takes victims — ``(-len(payload), time_stamp,
+    seqno)``, largest first, oldest first among equals. The JAX package
+    picks the same victims by a scan of the whole queue on every put above
+    the watermark; here a put pops only its victims, O(victims * log n).
+
+    A heap with lazy deletion: ``_members`` holds each indexed unit's
+    current key, and a heap entry that is no longer its unit's current key
+    is dropped when it surfaces, without reading the unit. The work queue
+    keeps the index (``PartitionedWorkQueue.spill_index``): units are
+    offered where they enter the queue or are unpinned, and discarded where
+    they leave it or are pinned; spilling and faulting in go through
+    remove and add."""
+
+    def __init__(self) -> None:
+        self._heap: list[tuple[int, float, int]] = []
+        self._members: dict[int, tuple] = {}  # seqno -> (key, unit)
+
+    def __len__(self) -> int:
+        return len(self._members)
+
+    def offer(self, unit) -> None:
+        """Index ``unit`` under its current key, or drop it when it cannot
+        be a victim."""
+        if unit.pinned or unit.spilled or not unit.payload:
+            self._members.pop(unit.seqno, None)
+            return
+        key = (-len(unit.payload), unit.time_stamp, unit.seqno)
+        held = self._members.get(unit.seqno)
+        self._members[unit.seqno] = (key, unit)
+        if held is not None and held[0] == key:
+            return  # its heap entry is still there
+        heapq.heappush(self._heap, key)
+        if len(self._heap) > 2 * len(self._members) + 64:
+            # stale entries outnumber live ones: rebuild, O(n) amortised
+            self._heap = [k for k, _ in self._members.values()]
+            heapq.heapify(self._heap)
+
+    def discard(self, seqno: int) -> None:
+        self._members.pop(seqno, None)
+
+    def pop(self):
+        """The next victim, taken out of the index, or None."""
+        heap, members = self._heap, self._members
+        while heap:
+            key = heapq.heappop(heap)
+            held = members.get(key[2])
+            if held is not None and held[0] == key:
+                del members[key[2]]
+                return held[1]
+        return None

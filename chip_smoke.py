@@ -5,9 +5,11 @@
 Needs a CUDA device and ``nvcc`` (it exits non-zero without them, printing
 no result). Phases:
 
-1. build the two kernels, the greedy sweep
+1. build the three kernels, the greedy sweep
    (``adlb_tpu_torch/csrc/greedy_sweep.cu``) and the sharded planner's
-   auction (``adlb_tpu_torch/csrc/auction.cu``), from the sources in this
+   candidates with their cross-shard merge
+   (``adlb_tpu_torch/csrc/candidates.cu``) and auction
+   (``adlb_tpu_torch/csrc/auction.cu``), from the sources in this
    checkout, one ``nvcc`` per source, started together;
 2. hold the kernel against its plain PyTorch versions and against the numpy
    twin ``_host_greedy`` on edge cases (among them requester counts whose
@@ -28,18 +30,31 @@ no result). Phases:
    eighth solve must equal ``_host_greedy``. Prints the launches per
    route and the median in-world solve split on the host clock into
    hand-off, sort + launch enqueue and wait for the result;
-4. hold the auction kernel against its plain version ``auction_torch`` and
-   the numpy twin ``_host_auction`` on fuzzed instances (T 1 to 64, m 1 to
-   40, 1 to 8 shards, C from ``_slot_sizes``; three shapes whose working
-   set goes to the kernel's device scratch), exact equality;
+4. hold the candidates kernel, per shard and merged, against its plain
+   version and a numpy twin on fuzzed task tables laid out as the solver
+   keeps them (1 to 16 shards, one and two jobs, with and without
+   truncation, the 10k row's shape sparse, dense, with one type, one
+   priority and repeated ranks, empty types, one row per shard, keys past
+   shared memory), each launched twice; and the auction kernel against its
+   plain version ``auction_torch`` and the numpy twin ``_host_auction`` on
+   fuzzed instances (T 1 to 64, m 1 to 40, 1 to 8 shards, C from
+   ``_slot_sizes``; three shapes whose working set goes to the kernel's
+   device scratch, one whose lists stay in device memory), over the full
+   merge and over its first D columns;
+   exact equality;
 5. drive the sharded planner: ``plan_bench``'s 1k and 10k rows (10,000
    servers x 100 parked requesters = 1M, 160,000 task slots, 8 shards, 16
    rounds) on the card, every round's device-tier pair list equal to the
-   host tier's from the same snapshots, one auction launch per device plan;
-   a few ``PlanEngine(use_mesh=True, nshards=8)`` rounds through the
-   ledger's view path, both tiers equal; then, on the 10k row's final
-   state, the auction kernel alone, the whole device plan (candidates,
-   merge, auction) and its split, and the plain version, timed;
+   host tier's from the same snapshots, one candidates launch and one
+   auction launch per device plan (and one candidates launch per host-tier
+   sweep); a few ``PlanEngine(use_mesh=True, nshards=8)`` rounds through
+   the ledger's view path, both tiers equal; ``dryrun_multichip(8)``
+   (``adlb_tpu_torch/graft_entry.py``); then, on the 10k row's final
+   state, both kernels against their plain versions and numpy twins, a
+   ``_device_plan`` counted at two launches, and the device plan timed:
+   each launch alone (medians of CUDA-event windows, and the device time
+   per launch in a CUDA graph) beside its bytes bound, the auction's chain bound (rounds run x barriers per round x one
+   barrier measured here), and the plain versions;
 6. run the known-answer workloads (nq, sudoku, gfmc, tsp, hotspot, model,
    add2, batcher, c1, c3, coinop, grid, partest, pmcmc, skel, trickle) in
    planned-balancer worlds on the card; each must return its answer, and
@@ -69,8 +84,11 @@ no result). Phases:
     per device solve for each planner; MTTR and the time from promotion to
     the deputy's first device solve are printed;
 11. phase 3's world with a write-ahead log and a spill tier, checkpointed by
-    rank 0 mid-run, then a second planned world that restores the
-    checkpoint and drains it: consumed and drained cover every unit;
+    rank 0 mid-run, 2 s after its last put was acknowledged (the planner
+    must have solved on the card by then), then a second planned world
+    that restores the checkpoint and drains it: consumed and drained cover
+    every unit; the first world's wall and its solves before the
+    checkpoint are printed;
 12. phase 3's world with two weighted jobs, the ops endpoint, an SLO
     objective, the controller (dry run), tail hedging and periodic
     statistics; a ``POST /jobs/1`` mid-run changes a weight, which must
@@ -146,6 +164,36 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 50, reps: int = 7) -> float:
+    """Device time per call with no host work in the way: ``calls`` calls
+    of ``fn`` captured in one CUDA graph, the median CUDA-event window of
+    its replays over ``calls``. ``fn`` must only enqueue work on the
+    current stream."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -569,7 +617,9 @@ def auction_instance(rng, T, m, nshards, rounds, sl=4, K=8, R=4, slots=None,
     its per-shard candidates merged (the port's ``_shard_candidates`` and
     ``_merge_shard_major``), random requester masks (or one random type per
     requester, as plan_bench parks them) and their slot tables. Returns
-    (numpy twin inputs, tensors on ``device``)."""
+    (numpy twin inputs, tensors on ``device``, D): the tensors hold the full
+    [T, nshards * D] merge; the device plan hands the auction its first D
+    columns."""
     import torch
 
     from adlb_tpu_torch.balancer import distributed as dist
@@ -594,7 +644,7 @@ def auction_instance(rng, T, m, nshards, rounds, sl=4, K=8, R=4, slots=None,
     rwc, open0 = dist._compact_reqwin(rw)
     ins = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
            for a in (gp, gg, rwc, lens, open0)]
-    return (gp, gg, rw, lens, rv), ins
+    return (gp, gg, rw, lens, rv), ins, D
 
 
 def auction_cases():
@@ -624,9 +674,21 @@ def auction_cases():
     return cases
 
 
+def tier(work) -> str:
+    """Where an auction workspace's launches keep their working set."""
+    if work.scratch is not None:
+        return "device scratch"
+    if work.lists_staged:
+        return "shared memory, lists staged"
+    return "shared memory, lists in device memory"
+
+
 def check_auction(auction, report):
     """Phase 4: the auction kernel against its plain version and the numpy
-    twin on every case. Returns the largest absolute difference seen."""
+    twin on every case, over the full [T, nshards * D] merge and over its
+    first D columns (what the device plan hands over), both equal to the
+    numpy twin over the full merge. Returns the largest absolute difference
+    seen."""
     import torch
 
     from adlb_tpu_torch.balancer import distributed as dist
@@ -634,21 +696,158 @@ def check_auction(auction, report):
     err = 0
     for name, T, m, ns, rounds, sl, slots, one in auction_cases():
         rng = np.random.default_rng(T * 1000 + m * 10 + ns)
-        (gp, gg, rw, lens, rv), ins = auction_instance(
+        (gp, gg, rw, lens, rv), ins, D = auction_instance(
             rng, T, m, ns, rounds, sl=sl, slots=slots, one_type=one)
         C = rw.shape[1]
-        work = auction.Workspace(T, C, m, ins[0].device)
-        got = work.launch(*ins, rounds).clone()
-        torch.cuda.synchronize()
-        plain = auction.auction_torch(*ins, rounds, m)
         want = dist._host_auction(gp, gg, rw, lens, rv.copy(), rounds, m)
-        err = max(err, int((got.long() - plain.long()).abs().max()))
-        if not (torch.equal(got, plain)
-                and np.array_equal(got.cpu().numpy()[:, :C], want)):
-            raise AssertionError(f"auction kernel disagrees on case {name}")
-        report(f"phase 4: {name} C={C} L={gp.shape[1]} rounds={rounds}: "
-               f"kernel == plain == host_auction, {int((want >= 0).sum())} "
-               f"commits in {int(work.rounds_run)} rounds, working set in "
+        work = auction.Workspace(T, C, m, ins[0].device)
+        cut = [x[:, :D].contiguous() for x in ins[:2]] + ins[2:]
+        for lists in (ins, cut):
+            got = work.launch(*lists, rounds).clone()
+            torch.cuda.synchronize()
+            plain = auction.auction_torch(*lists, rounds, m)
+            err = max(err, int((got.long() - plain.long()).abs().max()))
+            if not (torch.equal(got, plain)
+                    and np.array_equal(got.cpu().numpy()[:, :C], want)):
+                raise AssertionError(f"auction kernel disagrees on case "
+                                     f"{name}, L={lists[0].shape[1]}")
+        report(f"phase 4: auction {name} C={C} L={gp.shape[1]} and L=D={D} "
+               f"rounds={rounds}: kernel == plain == host_auction, "
+               f"{int((want >= 0).sum())} commits in "
+               f"{int(work.rounds_run)} rounds, {work.threads} threads, "
+               f"working set in {tier(work)}")
+    return err
+
+
+def candidates_numpy(tp, tt, rk, T, D):
+    """The numpy twin of the candidates: per shard and type, the D live
+    slots of the type with the best (prio desc, gid asc), prio clamped,
+    gid = rank * K + ki wrapped to int32, padded; [nshards, T, D] each."""
+    ns, Sl, K = tp.shape
+    gid = (rk.astype(np.int64)[:, :, None] * K + np.arange(K)) % 2**32
+    gid = np.where(gid >= 2**31, gid - 2**32, gid).astype(np.int32)
+    prio = np.clip(tp, -10**9, 10**9)
+    cp = np.full((ns, T, D), NEG, np.int32)
+    cg = np.full((ns, T, D), 2**31 - 1, np.int32)
+    for s in range(ns):
+        for t in range(T):
+            sel = (tp[s] > NEG) & (tt[s] == t)
+            p, g = prio[s][sel], gid[s][sel]
+            o = np.lexsort((g, -p.astype(np.int64)))[:D]
+            cp[s, t, :o.size] = p[o]
+            cg[s, t, :o.size] = g[o]
+    return cp, cg
+
+
+def candidates_instance(rng, ns, Sl, K, T, D, live=0.8, prio_hi=50,
+                        past_clip=False, one_type=False, empty_types=False,
+                        dup_ranks=False, device="cuda"):
+    """A fuzzed task table laid out as the solver keeps it ([S, 2K + 1]:
+    prios, types, rank; the kernel reads strided views of it). Dead slots,
+    slots with no type and free rows (rank 0, dead) throughout; optionally
+    prios biased past the clip (multi-job), every live slot of type 0, the
+    odd types empty, or ranks repeated (equal (prio, gid) pairs). Returns
+    numpy (tp, tt, rk) and the views on ``device``."""
+    import torch
+
+    S = ns * Sl
+    tp = rng.integers(-prio_hi, prio_hi, (S, K)).astype(np.int32)
+    if past_clip:
+        tp[rng.random((S, K)) < 0.1] = 10**9 + 7000
+        tp[rng.random((S, K)) < 0.1] = -10**9 - 3
+    tt = rng.integers(-1, T, (S, K)).astype(np.int32)
+    if one_type:
+        tt[tt >= 0] = 0
+    if empty_types:
+        tt[tt % 2 == 1] -= 1
+    tp[rng.random((S, K)) >= live] = NEG
+    rk = rng.permutation(S).astype(np.int32) + 3
+    if dup_ranks:
+        rk = rng.integers(3, 3 + max(S // 4, 1), S).astype(np.int32)
+    free = rng.random(S) < 0.1
+    tp[free], tt[free], rk[free] = NEG, -1, 0
+    tab = torch.empty((S, 2 * K + 1), dtype=torch.int32)
+    tab[:, :K] = torch.from_numpy(tp)
+    tab[:, K:2 * K] = torch.from_numpy(tt)
+    tab[:, 2 * K] = torch.from_numpy(rk)
+    tab = tab.to(device)
+    views = (tab[:, :K].reshape(ns, Sl, K), tab[:, K:2 * K].reshape(ns, Sl, K),
+             tab[:, 2 * K].reshape(ns, Sl))
+    shaped = (tp.reshape(ns, Sl, K), tt.reshape(ns, Sl, K), rk.reshape(ns, Sl))
+    return shaped, views
+
+
+def candidates_cases():
+    """(name, nshards, Sl, K, T, D, instance options): nshards 1, 2, 8 and
+    16 with one and two jobs (T = 4 and 8, prios past the clip), each with
+    and without truncation (more than D live of a type in a shard); the
+    10k row's shape (8 x 1250 x 16, T=8, D=545) sparse as plan_bench fills
+    it and dense, one type only, equal prios, repeated ranks; empty types;
+    one server row per shard; 16 shards at T=24; and a shard whose keys go
+    to the kernel's device scratch."""
+    cases = []
+    for ns in (1, 2, 8, 16):
+        for J in (1, 2):
+            for trunc in (False, True):
+                D = 5 if trunc else 70
+                cases.append((f"nshards={ns} J={J} "
+                              f"{'truncated' if trunc else 'untruncated'}",
+                              ns, 6, 8, 4 * J, D, dict(past_clip=J > 1)))
+    cases += [
+        ("10k-row shape, plan_bench-sparse", 8, 1250, 16, 8, 545,
+         dict(live=0.02)),
+        ("10k-row shape, dense", 8, 1250, 16, 8, 545, {}),
+        ("10k-row shape, one type", 8, 1250, 16, 8, 545,
+         dict(one_type=True)),
+        ("10k-row shape, one prio", 8, 1250, 16, 8, 545,
+         dict(prio_hi=1, one_type=True)),
+        ("10k-row shape, repeated ranks", 8, 1250, 16, 8, 545,
+         dict(dup_ranks=True, prio_hi=2)),
+        ("empty types", 8, 40, 16, 8, 33, dict(empty_types=True)),
+        ("one server row per shard", 8, 1, 8, 2, 9, {}),
+        ("16 shards, T=24", 16, 64, 16, 24, 300, dict(past_clip=True)),
+        ("past shared memory: 1 shard x 2048 x 16", 1, 2048, 16, 8, 545,
+         dict(one_type=True)),
+    ]
+    return cases
+
+
+def check_candidates(candidates, report):
+    """Phase 4: the candidates kernel, per-shard and merged, against its
+    plain version and the numpy twin on every case, launched twice (the
+    merge's per-type tickets must come back to 0). Exact equality: integer
+    priorities and ids. Returns the largest absolute difference seen."""
+    import torch
+
+    from adlb_tpu_torch.balancer import distributed as dist
+
+    err = 0
+    for i, (name, ns, Sl, K, T, D, opts) in enumerate(candidates_cases()):
+        rng = np.random.default_rng(600 + i)
+        shaped, views = candidates_instance(rng, ns, Sl, K, T, D, **opts)
+        cp_np, cg_np = candidates_numpy(*shaped, T, D)
+        gp_np, gg_np = (x[:, :D] for x in dist._merge_shard_major(cp_np,
+                                                                 cg_np))
+        work = candidates.Workspace(ns, Sl, K, T, D, views[0].device)
+        for merge, want in ((False, (cp_np, cg_np)), (True, (gp_np, gg_np))):
+            plain = candidates.candidates_torch(*views, T, D, merge)
+            for _ in range(2):
+                got = [x.clone() for x in work.launch(*views, merge)]
+                torch.cuda.synchronize()
+                for g, p, w in zip(got, plain, want):
+                    err = max(err, int((g.long() - p.long()).abs().max()))
+                    if not (torch.equal(g, p)
+                            and np.array_equal(g.cpu().numpy(), w)):
+                        raise AssertionError(
+                            f"candidates kernel disagrees on case {name} "
+                            f"({'merged' if merge else 'per shard'})")
+        live = (shaped[0] > NEG) & (shaped[1] >= 0)
+        most = max(int((live[s] & (shaped[1][s] == t)).sum())
+                   for s in range(ns) for t in range(T))
+        report(f"phase 4: candidates {name} [{ns}, {Sl}, {K}] T={T} D={D}: "
+               f"per shard and merged, kernel == plain == numpy twin, twice; "
+               f"most live of a type in a shard {most}"
+               f"{' (truncated)' if most > D else ''}, keys in "
                f"{'device scratch' if work.scratch is not None else 'shared memory'}")
     return err
 
@@ -686,12 +885,59 @@ def auction_bound_ms(auction, gp, gg, rwc, lens, open0, rounds_run, m):
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def time_device_plan(solver, auction, report):
-    """On a solver's resident state: the auction kernel alone, the whole
-    device plan on the card (candidates, merge, launch) and its split, the
-    plain version on the same inputs, and one ``_device_plan`` (with its
-    D2H) on the host clock. The kernel's result must equal the plain
-    version's and the numpy twin's."""
+def timing_script():
+    """``scripts/time_auction.py``, loaded from this checkout: its
+    ``barrier_ms`` times one block barrier (``scripts/barrier_probe.cu``)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "time_auction.py")
+    spec = importlib.util.spec_from_file_location("time_auction", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def device_plan_split(solver, reps: int = 50) -> dict:
+    """A device-tier solver's device plan on its resident state, as it
+    runs: ``candidates_ms`` (one launch: every shard's candidates and their
+    merge into [T, D]), ``auction_ms`` (one launch) and ``device_plan_ms``
+    (both), medians of per-call CUDA-event windows, each with its device
+    time per call in a CUDA graph beside it (``*_graph_ms``, no host launch
+    work in the window); no readback. Its launches count as any other:
+    call it after the counts were read."""
+    blocks = solver._dev_blocks
+    rwc, lens, open0 = solver._dev_req
+    cw, aw = solver._cand_work, solver._work
+
+    def cands():
+        cw.launch(*blocks, True)
+
+    def auct():
+        aw.launch(cw.gp, cw.gg, rwc, lens, open0, solver.rounds)
+
+    def both():
+        cands()
+        auct()
+
+    cands()
+    out = {}
+    for name, fn in (("candidates", cands), ("auction", auct),
+                     ("device_plan", both)):
+        out[f"{name}_ms"] = time_ms(fn, reps)
+        out[f"{name}_graph_ms"] = graph_ms(fn)
+    return out
+
+
+def time_device_plan(solver, auction, candidates, report):
+    """On a device-tier solver's resident state: the device plan's two
+    launches (candidates with the merge, then the auction) held against
+    their plain versions and the numpy twins, counted in one
+    ``_device_plan`` and timed: each launch alone, both, the plain versions
+    (the torch ops the candidates launch replaced: K4's batched sorts, K3
+    alone, the merge's sort; ``auction_torch``), each launch's bytes bound
+    and the auction's chain bound, and one ``_device_plan`` with its D2H on
+    the host clock."""
     import torch
 
     from adlb_tpu_torch.balancer import distributed as dist
@@ -699,30 +945,39 @@ def time_device_plan(solver, auction, report):
 
     T, C, D, m = solver.T, solver.C, solver.D, solver.m
     blocks = solver._dev_blocks
-    cp, cg = dist._shard_candidates(*blocks, T, D)
-    gp, gg = dist._merge_candidates(cp, cg)
     rwc, lens, open0 = solver._dev_req
-    work = solver._work
-    got = work.launch(gp, gg, rwc, lens, open0, solver.rounds).clone()
-    rounds_run = int(work.rounds_run)
+    cw, aw = solver._cand_work, solver._work
+    cpu_blocks = [b.cpu().numpy() for b in blocks]
+    cp_np, cg_np = candidates_numpy(*cpu_blocks, T, D)
+    full_p, full_g = dist._merge_shard_major(cp_np, cg_np)
+    got_cp = [x.clone() for x in cw.launch(*blocks, False)]
+    gp, gg = (x.clone() for x in cw.launch(*blocks, True))
+    plain_cp = candidates.candidates_torch(*blocks, T, D, False)
+    plain_gp = candidates.candidates_torch(*blocks, T, D, True)
+    if not (all(torch.equal(a, b) for a, b in zip(got_cp, plain_cp))
+            and all(torch.equal(a, b) for a, b in zip((gp, gg), plain_gp))
+            and np.array_equal(got_cp[0].cpu().numpy(), cp_np)
+            and np.array_equal(got_cp[1].cpu().numpy(), cg_np)
+            and np.array_equal(gp.cpu().numpy(), full_p[:, :D])
+            and np.array_equal(gg.cpu().numpy(), full_g[:, :D])):
+        raise AssertionError("candidates kernel disagrees at the 10k row")
+    got = aw.launch(gp, gg, rwc, lens, open0, solver.rounds).clone()
+    rounds_run = int(aw.rounds_run)
     plain = auction.auction_torch(gp, gg, rwc, lens, open0, solver.rounds, m)
-    req_open = solver._req_valid.copy()
-    want = dist._host_auction(gp.cpu().numpy(), gg.cpu().numpy(), solver._rw,
-                              solver._lens, req_open, solver.rounds, m)
+    want = dist._host_auction(full_p, full_g, solver._rw, solver._lens,
+                              solver._req_valid.copy(), solver.rounds, m)
     if not (torch.equal(got, plain)
             and np.array_equal(got.cpu().numpy()[:, :C], want)):
         raise AssertionError("auction kernel disagrees at the 10k row")
-    # the candidate step's batched stable sorts on the card against the
-    # same torch ops on the CPU (both tiers take their candidates from it)
-    on_cpu = dist._shard_candidates(*(b.cpu() for b in blocks), T, D)
-    if not all(torch.equal(a.cpu(), b) for a, b in zip((cp, cg), on_cpu)):
-        raise AssertionError("candidates on the card differ from the CPU's "
-                             "at the 10k row")
+    c0, a0 = candidates.launches, auction.launches
+    solver._device_plan()
+    per_plan = (candidates.launches - c0, auction.launches - a0)
+    if per_plan != (1, 1):
+        raise AssertionError(f"a device plan launched {per_plan} "
+                             f"(candidates, auction), not (1, 1)")
 
-    # K3 as the candidates step calls it: the three int32 sort keys of
-    # every shard's task slots ([nshards, Sl*K]) to one int64 order; its
-    # bound counts the keys read once and the order written once. K4's
-    # counts the task blocks read once and the candidates written once.
+    # K3 as the plain candidates call it: the three int32 sort keys of
+    # every shard's task slots ([nshards, Sl*K]) to one int64 order
     tp, tt, rk = blocks
     ns, Sl, K = tp.shape
     live = (tp > NEG) & (tt >= 0)
@@ -730,37 +985,49 @@ def time_device_plan(solver, auction, report):
                -torch.clamp(tp, -10**9, 10**9).reshape(ns, -1),
                (rk.reshape(ns, Sl, 1) * K + torch.arange(
                    K, dtype=torch.int32, device=tp.device)).reshape(ns, -1))
+    cp_t, cg_t = candidates.candidates_torch(*blocks, T, D, False)
+    split = device_plan_split(solver)
+    bar = timing_script().barrier_ms(time_ms, aw.threads)
 
     def plan_on_card():
-        a, b = dist._shard_candidates(*blocks, T, D)
-        p, g = dist._merge_candidates(a, b)
-        work.launch(p, g, rwc, lens, open0, solver.rounds)
+        cw.launch(*blocks, True)
+        aw.launch(cw.gp, cw.gg, rwc, lens, open0, solver.rounds)
 
+    # the candidates launch reads the task blocks once and writes gp, gg
+    cand_bytes = (sum(b.numel() * 4 for b in blocks) + 2 * T * D * 4)
     out = {
-        "ms": time_ms(lambda: work.launch(gp, gg, rwc, lens, open0,
-                                          solver.rounds), reps=50),
+        **split,
+        "candidates_ms_back_to_back": back_to_back_ms(
+            lambda: cw.launch(*blocks, True), reps=200),
         "ms_back_to_back": back_to_back_ms(
-            lambda: work.launch(gp, gg, rwc, lens, open0, solver.rounds),
+            lambda: aw.launch(gp, gg, rwc, lens, open0, solver.rounds),
             reps=200),
-        "device_plan_ms": time_ms(plan_on_card, reps=50),
-        "device_plan_ms_back_to_back": back_to_back_ms(plan_on_card, reps=50),
-        "candidates_ms": time_ms(lambda: dist._shard_candidates(*blocks, T, D),
-                                 reps=50),
-        "merge_ms": time_ms(lambda: dist._merge_candidates(cp, cg), reps=50),
+        "device_plan_ms_back_to_back": back_to_back_ms(plan_on_card, reps=100),
+        "candidates_plain_ms": time_ms(
+            lambda: candidates.candidates_torch(*blocks, T, D, True), reps=50),
+        "k4_plain_ms": time_ms(
+            lambda: candidates.candidates_torch(*blocks, T, D, False),
+            reps=50),
+        "merge_plain_ms": time_ms(
+            lambda: candidates._merge_candidates(cp_t, cg_t), reps=50),
         "k3_ms": time_ms(lambda: solve._stable_argsort3(*k3_keys), reps=50),
         "k3_bound_ms": (sum(k.numel() * 4 for k in k3_keys)
                         + k3_keys[0].numel() * 8) / HBM_BYTES_PER_S * 1e3,
-        "k4_bound_ms": (sum(b.numel() * 4 for b in blocks)
-                        + (cp.numel() + cg.numel()) * 4)
-        / HBM_BYTES_PER_S * 1e3,
+        "candidates_bound_ms": cand_bytes / HBM_BYTES_PER_S * 1e3,
         "plain_ms": time_ms(lambda: auction.auction_torch(
             gp, gg, rwc, lens, open0, solver.rounds, m), reps=3, warmup=1),
         "bound_ms": auction_bound_ms(auction, gp, gg, rwc, lens, open0,
                                      rounds_run, m),
+        "barrier_ms": bar,
+        "barriers_per_round": auction.BARRIERS_PER_ROUND,
+        "chain_bound_ms": rounds_run * auction.BARRIERS_PER_ROUND * bar,
+        "auction_threads": aw.threads,
+        "auction_lists_staged": aw.lists_staged,
+        "launches_per_device_plan": sum(per_plan),
         "rounds_run": rounds_run,
         "commits": int((want >= 0).sum()),
-        "shape": {"T": T, "L": int(gp.shape[1]), "C": C, "m": m,
-                  "nshards": solver.nshards, "S": solver.S, "K": solver.K},
+        "shape": {"T": T, "D": D, "C": C, "m": m, "nshards": solver.nshards,
+                  "S": solver.S, "K": solver.K},
     }
     host_plan = []
     for _ in range(11):
@@ -768,20 +1035,30 @@ def time_device_plan(solver, auction, report):
         solver._device_plan()
         host_plan.append(time.perf_counter() - t0)
     out["device_plan_host_clock_ms"] = 1e3 * statistics.median(host_plan[1:])
-    report(f"phase 5: 10k row, T={T} L={gp.shape[1]} C={C} m={m}: auction "
-           f"kernel alone {out['ms']:.4f} ms per call (back to back "
-           f"{out['ms_back_to_back']:.4f}), {rounds_run} rounds run, "
-           f"{out['commits']} commits; whole device plan "
+    report(f"phase 5: 10k row, T={T} D={D} C={C} m={m}: device plan "
            f"{out['device_plan_ms']:.4f} ms per call (back to back "
-           f"{out['device_plan_ms_back_to_back']:.4f}): candidates "
-           f"{out['candidates_ms']:.4f} ms (bound {out['k4_bound_ms']:.6f} "
-           f"ms, bytes), merge {out['merge_ms']:.4f} ms; K3 "
-           f"(_stable_argsort3 on [{ns}, {Sl * K}]) alone {out['k3_ms']:.4f} "
-           f"ms (bound {out['k3_bound_ms']:.6f} ms, bytes); "
-           f"_device_plan with its D2H {out['device_plan_host_clock_ms']:.3f} "
-           f"ms on the host clock; plain version {out['plain_ms']:.3f} ms; "
-           f"bound {out['bound_ms']:.6f} ms (bytes); candidates on the "
-           f"card == on the CPU")
+           f"{out['device_plan_ms_back_to_back']:.4f}, in a CUDA graph "
+           f"{out['device_plan_graph_ms']:.4f}), "
+           f"{out['launches_per_device_plan']} launches: candidates + merge "
+           f"{out['candidates_ms']:.4f} ms (back to back "
+           f"{out['candidates_ms_back_to_back']:.4f}, in a CUDA graph "
+           f"{out['candidates_graph_ms']:.4f}; bound "
+           f"{out['candidates_bound_ms']:.6f} ms, bytes), auction "
+           f"{out['auction_ms']:.4f} ms (back to back "
+           f"{out['ms_back_to_back']:.4f}, in a CUDA graph "
+           f"{out['auction_graph_ms']:.4f}; bound {out['bound_ms']:.6f} ms, "
+           f"bytes; chain bound {out['chain_bound_ms']:.6f} ms = "
+           f"{rounds_run} rounds x {auction.BARRIERS_PER_ROUND} barriers x "
+           f"{bar * 1e3:.4f} us at {aw.threads} threads), "
+           f"{out['commits']} "
+           f"commits; plain versions: candidates + merge "
+           f"{out['candidates_plain_ms']:.4f} ms (per shard "
+           f"{out['k4_plain_ms']:.4f}, merge {out['merge_plain_ms']:.4f}, "
+           f"K3 alone on [{ns}, {Sl * K}] {out['k3_ms']:.4f} ms, bound "
+           f"{out['k3_bound_ms']:.6f} ms), auction {out['plain_ms']:.3f} ms; "
+           f"_device_plan with its D2H "
+           f"{out['device_plan_host_clock_ms']:.3f} ms on the host clock; "
+           f"kernels == plain versions == numpy twins")
     return out
 
 
@@ -791,9 +1068,12 @@ def run_sharded_planner(auction, report, reps=40, device="cuda",
     40 rounds, both tiers from the same snapshots every round, then
     PlanEngine rounds through the view path (``device``, ``reps`` and
     ``scales`` only shrink it for a rehearsal on the CPU, where nothing
-    launches). Returns (auction launches, device plans, the last row's
-    solver, plan_bench's result)."""
-    from adlb_tpu_torch.balancer import plan_bench
+    launches), and ``dryrun_multichip(8)`` (``adlb_tpu_torch/graft_entry.py``).
+    Every device plan is one candidates launch and one auction launch; every
+    host-tier sweep one candidates launch. Returns ({kernel: launches},
+    device plans, the last row's solver, plan_bench's result)."""
+    from adlb_tpu_torch import graft_entry
+    from adlb_tpu_torch.balancer import candidates, plan_bench
     from adlb_tpu_torch.balancer.distributed import (
         DistributedAssignmentSolver)
     from adlb_tpu_torch.balancer.engine import PlanEngine
@@ -801,8 +1081,11 @@ def run_sharded_planner(auction, report, reps=40, device="cuda",
     kept = {}
     plans = []
 
+    sweeps = []
+
     def on_row(solver, row):
         plans.append(solver.solve_count)
+        sweeps.append(solver.sweep_count + row["host_tier_sweeps"])
         kept[row["servers"]] = solver
         report(f"phase 5: plan_bench {row['servers']} servers x {row['R']} "
                f"parked ({row['parked_reqs']} requesters, "
@@ -821,11 +1104,11 @@ def run_sharded_planner(auction, report, reps=40, device="cuda",
                f"{row['host_tier_p99_ms']:.3f} ms; device tier == host tier "
                f"on all {row['rounds_equal_to_host_tier']} rounds")
 
-    auction.launches = 0
+    auction.launches = candidates.launches = 0
     scales = scales or [plan_bench.SCALES[2], plan_bench.SCALES[3]]
     out = plan_bench.run_sweep(scales=scales, reps=reps, nshards=8,
                                device=device, check_host=True, on_row=on_row)
-    launches = auction.launches
+    launches, cand_launches = auction.launches, candidates.launches
     # a few engine rounds: the array ledger hands the solver its view
     engines = [PlanEngine(types=plan_bench.TYPES, max_tasks=16,
                           max_requesters=16, use_mesh=True, nshards=8,
@@ -865,19 +1148,41 @@ def run_sharded_planner(auction, report, reps=40, device="cuda",
                                  f"plan differs from the host tier's")
         matched += len(got[0][0])
     launches_engine = auction.launches - launches
+    cand_engine = candidates.launches - cand_launches
     on_card = device == "cuda"
-    if engines[0].solver._seen_member_gen is None or matched == 0 \
-            or launches_engine != on_card * engines[0].solver.solve_count:
+    dev_solver, host_solver = (e.solver for e in engines)
+    if dev_solver._seen_member_gen is None or matched == 0 \
+            or launches_engine != on_card * dev_solver.solve_count \
+            or cand_engine != on_card * (dev_solver.solve_count
+                                         + host_solver.sweep_count):
         raise AssertionError("the engine rounds did not plan through the "
-                             "view path and the kernel")
+                             "view path and the kernels")
     report(f"phase 5: PlanEngine(use_mesh=True, nshards=8) x 6 rounds "
            f"through the ledger view: {matched} matches, device tier == "
-           f"host tier, {launches_engine} auction launches")
-    if launches != on_card * sum(plans) or not all(plans):
-        raise AssertionError(f"plan_bench did not run one auction launch per "
-                             f"device plan: launches={launches} "
-                             f"plans={plans}")
-    return launches, sum(plans), kept[scales[-1][0]], out
+           f"host tier, {cand_engine} candidates and {launches_engine} "
+           f"auction launches")
+    if launches != on_card * sum(plans) or not all(plans) \
+            or cand_launches != on_card * (sum(plans) + sum(sweeps)):
+        raise AssertionError(f"plan_bench did not run one launch of each "
+                             f"kernel per device plan: auction {launches}, "
+                             f"candidates {cand_launches}, plans {plans}, "
+                             f"sweeps {sweeps}")
+    before = candidates.launches, auction.launches
+    dry = graft_entry.dryrun_multichip(8, device=device)
+    dry_launches = (candidates.launches - before[0],
+                    auction.launches - before[1])
+    if dry_launches != (on_card * dry["device_plans"],) * 2:
+        raise AssertionError(f"dryrun_multichip(8): {dry_launches} "
+                             f"(candidates, auction) launches for "
+                             f"{dry['device_plans']} device plans")
+    report(f"phase 5: dryrun_multichip(8) on {device}: {dry['pairs']} plan "
+           f"entries, types respected; engine round {dry['matches']} "
+           f"matches, {dry['migrations']} migrations; "
+           f"{dry['device_plans']} device plans = {dry_launches[0]} "
+           f"candidates + {dry_launches[1]} auction launches")
+    counts = {"auction": auction.launches,
+              "shard_candidates": candidates.launches}
+    return counts, sum(plans), kept[scales[-1][0]], out
 
 
 def run_workloads(gs, report, device="cuda"):
@@ -1554,12 +1859,13 @@ def run_durable_world(gs, report, device="cuda", nunits=10_000, napps=64,
     WAL's group commit is ``wal_fsync_ms`` wide: a put handler commits
     once the window is due, so where an fsync takes longer than the 5 ms
     default window, every put would sync. About a fifth of the payloads
-    spill (the tier scans the queue for a victim on every put over the
-    watermark). The planner must have made device solves before the
-    checkpoint; consumed and drained must cover every unit; both worlds'
-    K1 launches equal their device solves, and their kept solves equal
-    ``_host_greedy``. Returns the two walls, the spilled share and both
-    worlds' planner counts."""
+    spill (each put over the watermark pops its victims from the queue's
+    resident index). The planner must have made device solves before the
+    checkpoint (how many follows the world's wall, about one a second:
+    the engine's migrations feed most consumers without a solve); consumed
+    and drained must cover every unit; both worlds' K1 launches equal
+    their device solves, and their kept solves equal ``_host_greedy``. Returns the two walls, the spilled
+    share and both worlds' planner counts."""
     import dataclasses
 
     from adlb_tpu_torch import run_world
@@ -1906,7 +2212,7 @@ def main() -> int:
         phase_walls[phase] = laps[-1] - laps[-2]
         report(f"phase {phase}: wall {phase_walls[phase]:.1f} s")
 
-    from adlb_tpu_torch.balancer import auction, cuda_build
+    from adlb_tpu_torch.balancer import auction, candidates, cuda_build
 
     # the native plane (g++ / gcc) builds beside the kernels (nvcc)
     t0 = time.perf_counter()
@@ -1914,8 +2220,11 @@ def main() -> int:
     native_thread = threading.Thread(
         target=lambda: native.update(paths=build_native()), daemon=True)
     native_thread.start()
-    cuda_build.build_all([gs.SOURCE, auction.SOURCE])  # one nvcc each, together
-    built = [gs.build(), auction.build()]
+    # one nvcc each, all together (and the barrier probe that times the
+    # auction's chain bound)
+    cuda_build.build_all([gs.SOURCE, candidates.SOURCE, auction.SOURCE,
+                          timing_script().PROBE_SOURCE])
+    built = [gs.build(), candidates.build(), auction.build()]
     report(f"phase 1: built {', '.join(so.name for so in built)} in "
            f"{time.perf_counter() - t0:.2f} s")
     native_thread.join()
@@ -1924,7 +2233,7 @@ def main() -> int:
     report(f"phase 1: built the native plane "
            f"({', '.join(os.path.basename(p) for p in native['paths'])}) in "
            f"{time.perf_counter() - t0:.2f} s")
-    for log in (gs.build_log, auction.build_log):
+    for log in (gs.build_log, candidates.build_log, auction.build_log):
         for ln in log.splitlines():
             if "ptxas" in ln:
                 report(f"phase 1: {ln.strip()}")
@@ -1935,7 +2244,7 @@ def main() -> int:
 
     keep_solves()
     gs.reset_counts()
-    auction.launches = 0
+    auction.launches = candidates.launches = 0
     solve.reset_counts()
     nunits = 10_000
     with PlannerTimer() as main_timer:
@@ -1976,15 +2285,18 @@ def main() -> int:
            f"on the host clock; median split: {split_text(alone_splits[1:])}")
     lap("3")
 
+    cand_err = check_candidates(candidates, report)
     auction_err = check_auction(auction, report)
     lap("4")
     t0 = time.perf_counter()
-    auction_launches, device_plans, solver10k, _ = run_sharded_planner(
+    planner_launches, device_plans, solver10k, _ = run_sharded_planner(
         auction, report)
-    report(f"phase 5: plan_bench rows in {time.perf_counter() - t0:.1f} s, "
-           f"{auction_launches} auction launches for {device_plans} device "
-           f"plans")
-    timed10k = time_device_plan(solver10k, auction, report)
+    report(f"phase 5: plan_bench rows and the dryrun in "
+           f"{time.perf_counter() - t0:.1f} s, "
+           f"{planner_launches['shard_candidates']} candidates launches and "
+           f"{planner_launches['auction']} auction launches for "
+           f"{device_plans} plan_bench device plans")
+    timed10k = time_device_plan(solver10k, auction, candidates, report)
     del solver10k
     lap("5")
     work_launches, work_solves = run_workloads(gs, report)
@@ -2073,17 +2385,35 @@ def main() -> int:
         "phase_walls_s": phase_walls,
         "by_case_65536x8192": by_case,
     }, {
+        "name": "shard_candidates",
+        "route": "cuda",
+        "source": "adlb_tpu_torch/csrc/candidates.cu",
+        "replaces": "adlb_tpu/balancer/distributed.py:88",
+        "launches": planner_launches["shard_candidates"],
+        "max_abs_err": cand_err,
+        "ms": timed10k["candidates_ms"],
+        "ms_back_to_back": timed10k["candidates_ms_back_to_back"],
+        "ms_graph": timed10k["candidates_graph_ms"],
+        "plain_ms": timed10k["candidates_plain_ms"],
+        "bound_ms": timed10k["candidates_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "also_replaces": ["adlb_tpu/balancer/distributed.py:170",
+                          "adlb_tpu/balancer/solve.py:53"],
+    }, {
         "name": "auction",
         "route": "cuda",
         "source": "adlb_tpu_torch/csrc/auction.cu",
-        "replaces": "adlb_tpu/balancer/distributed.py:190",
-        "launches": auction_launches,
+        "replaces": "adlb_tpu/balancer/distributed.py:136",
+        "launches": planner_launches["auction"],
         "max_abs_err": auction_err,
-        "ms": timed10k["ms"],
+        "ms": timed10k["auction_ms"],
         "ms_back_to_back": timed10k["ms_back_to_back"],
+        "ms_graph": timed10k["auction_graph_ms"],
         "plain_ms": timed10k["plain_ms"],
         "bound_ms": timed10k["bound_ms"],
         "bound_by": "bytes",
+        "chain_bound_ms": timed10k["chain_bound_ms"],
         "library_ms": None,
         "device_plan_ms": timed10k["device_plan_ms"],
         "at_10k_row": timed10k,

@@ -12,7 +12,9 @@ Runs a warm 65536 x 8192 device solve (bench.py's generator) through
 checkout to count its solve the same way. With ``--plan`` it counts one
 device plan of the sharded planner instead
 (``DistributedAssignmentSolver._device_plan`` on the state ``plan_bench``'s
-1k row leaves: 1,000 servers, 8 shards). Needs a CUDA device.
+1k row leaves: 1,000 servers, 8 shards), whose ctypes calls are the
+candidates kernel's and the auction kernel's launches; ``torch_by_name``
+shows whether a ``sort`` is left on the card's path. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -46,8 +48,7 @@ def main() -> int:
         print("count_solve_calls: no CUDA device", file=sys.stderr)
         return 1
     if args.plan:
-        from adlb_tpu_torch.balancer import auction as kernel
-        from adlb_tpu_torch.balancer import plan_bench
+        from adlb_tpu_torch.balancer import auction, candidates, plan_bench
 
         kept = []
         plan_bench.run_sweep(scales=[plan_bench.SCALES[2]], reps=3,
@@ -56,8 +57,9 @@ def main() -> int:
         solver = kept[0]
         shape = [solver.S, solver.K, solver.T, solver.C, solver.nshards]
         work = solver._device_plan
+        kernels = [candidates, auction]
     else:
-        from adlb_tpu_torch.balancer import greedy_sweep as kernel
+        from adlb_tpu_torch.balancer import greedy_sweep
         from adlb_tpu_torch.balancer import solve
 
         rng = np.random.default_rng(1)
@@ -73,15 +75,18 @@ def main() -> int:
 
         def work():
             return solver._device_solve(*arrs)
+        kernels = [greedy_sweep]
     for _ in range(3):  # build, load, allocate
         work()
 
-    real = kernel._lib
     lib_calls = collections.Counter()
 
     class Counting:
+        def __init__(self, real):
+            self.real = real
+
         def __getattr__(self, name):
-            fn = getattr(real, name)
+            fn = getattr(self.real, name)
 
             def call(*a):
                 lib_calls[name] += 1
@@ -94,13 +99,16 @@ def main() -> int:
         if event == "c_call" and _is_torch(arg, torch.Tensor):
             torch_calls[getattr(arg, "__qualname__", repr(arg))] += 1
 
-    kernel._lib = Counting()
+    reals = [k._lib for k in kernels]
+    for k in kernels:
+        k._lib = Counting(k._lib)
     sys.setprofile(profile)
     try:
         work()
     finally:
         sys.setprofile(None)
-        kernel._lib = real
+        for k, real in zip(kernels, reals):
+            k._lib = real
     print(json.dumps({
         "root": str(Path(args.root).resolve()),
         "card": torch.cuda.get_device_name(0),

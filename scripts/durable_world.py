@@ -4,10 +4,12 @@ write-ahead log and its spill tier each on or off: the world's wall, rank
 units consumed before rank 0's checkpoint, the device solves made before
 it, the spilled share, the WAL's group commits, and the calls and
 host-clock seconds of the servers' spill check (``Server._maybe_spill``,
-which scans the queue for victims above the watermark).
+which pops its victims above the watermark from the queue's resident
+index).
 
     python3 scripts/durable_world.py [--modes wal+spill,spill,wal,none,pyq]
                                      [--after-failover] [--device cuda|cpu]
+                                     [--profile-hz HZ]
                                      [--units N] [--apps N] [--servers N]
                                      [--max-tasks N] [--max-requesters N]
 
@@ -22,7 +24,10 @@ run_master_failover``) and phase 11's configuration once more in the same
 process, to tell a cost of the configuration from one that earlier
 phases leave behind. Prints one JSON line per world, the card's name and
 power limit in each. ``--device cpu`` with small sizes rehearses it
-without a card.
+without a card. ``--profile-hz`` runs the servers' sampling profiler
+(``Config(profile_hz)``, ``obs/profile.py``) and adds to each line the
+server reactors' samples by tick phase and their heaviest innermost
+frames (``reactor_phases``, ``reactor_frames``).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ ROOT = Path(__file__).resolve().parents[1]
 def one_world(chip_smoke, mode: str, args) -> dict:
     from adlb_tpu_torch import run_world
     from adlb_tpu_torch.balancer import greedy_sweep, solve
+    from adlb_tpu_torch.obs import profile
     from adlb_tpu_torch.runtime import server, spill, wal
 
     spilled, syncs, scans = [], [], []
@@ -65,6 +71,14 @@ def one_world(chip_smoke, mode: str, args) -> dict:
         scans.append(time.perf_counter() - t)
         return out
 
+    profiles = []
+    stop_profile = profile.stop
+
+    def kept_stop(p):
+        if p is not None:
+            profiles.append(p.snapshot())
+        stop_profile(p)
+
     threads = threading.active_count()
     with tempfile.TemporaryDirectory() as tmp:
         cfg = chip_smoke.durable_config(args.device, tmp, args.units,
@@ -75,11 +89,14 @@ def one_world(chip_smoke, mode: str, args) -> dict:
             cfg = dataclasses.replace(cfg, spill_dir=None)
         if "pyq" in mode:
             cfg = dataclasses.replace(cfg, native_queues="off")
+        if args.profile_hz:
+            cfg = dataclasses.replace(cfg, profile_hz=args.profile_hz)
         app = functools.partial(chip_smoke.checkpoint_app, nunits=args.units,
                                 prefix=f"{tmp}/pool", pad=60, hold_s=2.0)
         spill.SpillStore.put = counted_put
         wal.WriteAheadLog._sync = timed_sync
         server.Server._maybe_spill = timed_scan
+        profile.stop = kept_stop
         greedy_sweep.reset_counts()
         solve.reset_counts()
         try:
@@ -93,8 +110,21 @@ def one_world(chip_smoke, mode: str, args) -> dict:
             spill.SpillStore.put = put
             wal.WriteAheadLog._sync = sync
             server.Server._maybe_spill = scan
+            profile.stop = stop_profile
     _, captured, timings = res.app_results[0]
     counts = solve.planner_counts()
+    phases, frames = {}, {}
+    for snap in profiles:
+        for stack, n in snap["stacks"].items():
+            parts = stack.split(";")
+            if parts[0] != "reactor":
+                continue
+            phase = parts[1] if parts[1].startswith("phase:") else "-"
+            phases[phase] = phases.get(phase, 0) + n
+            frames[parts[-1]] = frames.get(parts[-1], 0) + n
+
+    def top(d, k=15):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1])[:k])
     return {
         "mode": mode, "card": args.card,
         "threads_at_start": threads, "units": args.units,
@@ -111,6 +141,8 @@ def one_world(chip_smoke, mode: str, args) -> dict:
         "greedy_sweep_launches": counts["greedy_sweep_launches"],
         "solves_checked": counts["solves_checked"],
         "solves_wrong": counts["solves_wrong"],
+        **({"reactor_phases": top(phases), "reactor_frames": top(frames)}
+           if args.profile_hz else {}),
     }
 
 
@@ -124,6 +156,8 @@ def main() -> int:
     ap.add_argument("--servers", type=int, default=16)
     ap.add_argument("--max-tasks", type=int, default=4096)
     ap.add_argument("--max-requesters", type=int, default=512)
+    ap.add_argument("--profile-hz", type=float, default=0.0,
+                    help="sample the server reactors at this rate")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch

@@ -6,10 +6,18 @@ and requester counts whose working set does not fit in shared memory (the
 kernel's scratch buffer in device memory).
 
 The auction: bit-equal to ``auction_torch`` and to the numpy twin
-``_host_auction`` on fuzzed instances (one past shared memory, one
-multi-job type axis), one launch per device plan, the sharded solver's
+``_host_auction`` on fuzzed instances (a multi-job type axis whose lists
+stay in device memory, two past shared memory), over the full merge and
+over the [T, D] lists the device plan hands over, the sharded solver's
 device tier equal to its host tier over churn rounds, and a failed build
 or launch raises.
+
+The candidates (with the cross-shard merge): per shard and merged, bit-equal
+to the plain version and to a numpy twin on fuzzed instances (truncated
+types, empty types, repeated ranks, one row per shard, 16 shards, keys past
+shared memory), laid out as the solver's strided table; a device plan is
+one candidates launch and one auction launch; a refused launch raises.
+The graft entry (``graft_entry``) runs on the card.
 
 Process worlds and the native plane: ``spawn_world(start_method="fork")``
 with a master that plans on the card raises before any process starts; a
@@ -30,7 +38,9 @@ import numpy as np
 import pytest
 import torch
 
-from adlb_tpu_torch.balancer import auction, cuda_build, greedy_sweep
+from adlb_tpu_torch import graft_entry
+from adlb_tpu_torch.balancer import auction, candidates, cuda_build
+from adlb_tpu_torch.balancer import greedy_sweep
 from adlb_tpu_torch.balancer import distributed as dist
 from adlb_tpu_torch.balancer import plan_bench
 from adlb_tpu_torch.balancer.solve import _NEG, AssignmentSolver, _host_greedy
@@ -209,8 +219,10 @@ def _auction_instance(rng, T, m, nshards, rounds, Sl=4, K=8, R=4,
 
 
 #: (T, m, nshards, rounds, servers per shard, slots per type): m = 1 and
-#: m past a warp, T = 24 as 3 jobs x 8 types, and two shapes whose working
-#: set does not fit in shared memory (T=24, C=1024; T=32, C=1024)
+#: m past a warp, T = 24 as 3 jobs x 8 types at C=512 (the working set fits
+#: in shared memory, the staged lists beside it do not), and two shapes
+#: whose working set does not fit in shared memory (T=24, C=1024; T=32,
+#: C=1024)
 AUCTION_CASES = [(1, 1, 1, 16, 4, None), (4, 8, 2, 16, 4, None),
                  (8, 32, 8, 16, 32, None), (8, 40, 8, 16, 32, None),
                  (24, 32, 8, 16, 32, 512), (24, 32, 8, 32, 64, 1024),
@@ -235,6 +247,13 @@ def test_auction_kernel_matches_plain_and_host(card, T, m, nshards, rounds,
     np.testing.assert_array_equal(got.cpu().numpy()[:, :C], want)
     assert (want >= 0).sum() > 0
     assert (work.scratch is not None) == (slots == 1024)
+    assert work.lists_staged == (slots is None)
+    # the [T, D] lists the device plan hands over give the same commits
+    D = C + m + 1
+    cut = [x[:, :D].contiguous() for x in ins[:2]] + ins[2:]
+    got_cut = auction.auction(*cut, rounds, m, work=work)
+    assert torch.equal(got_cut, auction.auction_torch(*cut, rounds, m))
+    np.testing.assert_array_equal(got_cut.cpu().numpy()[:, :C], want)
     with pytest.raises(ValueError, match="workspace"):
         auction.auction(*ins, rounds, m + 1, work=work)
 
@@ -270,6 +289,127 @@ def test_sharded_device_tier_equals_host_tier_over_churn(card):
     assert [r["rounds_equal_to_host_tier"] for r in out["rows"]] == [8, 8]
     assert all(r["pairs_total"] > 0 for r in out["rows"])
     assert auction.launches - before == sum(plans)
+
+
+def _cand_instance(rng, ns, Sl, K, T, one_type=False, dup_ranks=False):
+    """A task table laid out as the solver keeps it ([S, 2K + 1]), dead
+    slots, slots with no type and free rows included: numpy (tp, tt, rk)
+    shaped [ns, Sl, ...] and the card views the kernel reads."""
+    S = ns * Sl
+    tp = rng.integers(-50, 50, (S, K)).astype(np.int32)
+    tp[rng.random((S, K)) < 0.1] = 10**9 + 5  # past the clip
+    tt = rng.integers(-1, T, (S, K)).astype(np.int32)
+    if one_type:
+        tt[tt >= 0] = 0
+    tp[rng.random((S, K)) < 0.2] = int(_NEG)
+    rk = (rng.integers(3, 3 + max(S // 4, 1), S) if dup_ranks
+          else rng.permutation(S) + 3).astype(np.int32)
+    free = rng.random(S) < 0.1
+    tp[free], tt[free], rk[free] = int(_NEG), -1, 0
+    tab = torch.empty((S, 2 * K + 1), dtype=torch.int32)
+    tab[:, :K], tab[:, K:2 * K] = torch.from_numpy(tp), torch.from_numpy(tt)
+    tab[:, 2 * K] = torch.from_numpy(rk)
+    tab = tab.cuda()
+    views = (tab[:, :K].reshape(ns, Sl, K), tab[:, K:2 * K].reshape(ns, Sl, K),
+             tab[:, 2 * K].reshape(ns, Sl))
+    return (tp.reshape(ns, Sl, K), tt.reshape(ns, Sl, K),
+            rk.reshape(ns, Sl)), views
+
+
+def _cand_numpy(tp, tt, rk, T, D):
+    """Numpy twin: per shard and type, the D live slots with the best (prio
+    desc, gid asc), prio clamped, gid = rank * K + ki; padded."""
+    ns, Sl, K = tp.shape
+    gid = (rk.astype(np.int64)[:, :, None] * K + np.arange(K)).astype(np.int32)
+    prio = np.clip(tp, -10**9, 10**9)
+    cp = np.full((ns, T, D), int(_NEG), np.int32)
+    cg = np.full((ns, T, D), 2**31 - 1, np.int32)
+    for s in range(ns):
+        for t in range(T):
+            sel = (tp[s] > int(_NEG)) & (tt[s] == t)
+            p, g = prio[s][sel], gid[s][sel]
+            o = np.lexsort((g, -p.astype(np.int64)))[:D]
+            cp[s, t, :o.size], cg[s, t, :o.size] = p[o], g[o]
+    return cp, cg
+
+
+#: (nshards, servers per shard, K, T, D, one type, repeated ranks): 1, 2, 8
+#: and 16 shards, truncated and not, the 10k row's shape dense and with one
+#: type, one row per shard, and one shard whose keys go to device scratch
+CAND_CASES = [(1, 6, 8, 4, 70, False, False), (2, 6, 8, 4, 5, False, False),
+              (8, 6, 8, 8, 5, False, True), (16, 64, 16, 24, 300, False, False),
+              (8, 1250, 16, 8, 545, False, False),
+              (8, 1250, 16, 8, 545, True, True), (8, 1, 8, 2, 9, False, False),
+              (1, 2048, 16, 8, 545, True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,Sl,K,T,D,one,dup", CAND_CASES)
+def test_candidates_kernel_matches_plain_and_numpy(card, ns, Sl, K, T, D, one,
+                                                   dup):
+    rng = np.random.default_rng(ns * 1000 + Sl + D)
+    shaped, views = _cand_instance(rng, ns, Sl, K, T, one, dup)
+    cp, cg = _cand_numpy(*shaped, T, D)
+    want = {False: (cp, cg),
+            True: tuple(x[:, :D] for x in dist._merge_shard_major(cp, cg))}
+    work = candidates.Workspace(ns, Sl, K, T, D, card)
+    for merge in (False, True):
+        plain = candidates.candidates_torch(*views, T, D, merge)
+        for _ in range(2):  # the merge's tickets come back to 0
+            before = candidates.launches
+            run = (candidates.merged_candidates if merge
+                   else candidates.shard_candidates)
+            got = [x.clone() for x in run(*views, T, D, work=work)]
+            torch.cuda.synchronize()
+            assert candidates.launches == before + 1
+            for g, p, w in zip(got, plain, want[merge]):
+                assert torch.equal(g, p)
+                np.testing.assert_array_equal(g.cpu().numpy(), w)
+    # a shard's keys (8 bytes each) past shared memory go to device scratch
+    assert (work.scratch is not None) == (Sl * K > 1250 * 16)
+
+
+@pytest.mark.cuda
+def test_candidates_refuse_what_the_kernel_does_not_take(card):
+    _, views = _cand_instance(np.random.default_rng(1), 2, 4, 8, 3)
+    with pytest.raises(ValueError, match="past the kernel"):
+        candidates.Workspace(2, 4, 8, 3, 5000, card)
+    work = candidates.Workspace(2, 4, 8, 3, 7, card)
+    with pytest.raises(ValueError, match="workspace"):
+        candidates.shard_candidates(*views, 3, 8, work=work)
+    with pytest.raises(ValueError, match="int32"):
+        work.launch(views[0].long(), *views[1:], True)
+
+
+@pytest.mark.cuda
+def test_device_plan_is_two_launches_equal_to_the_host_tier(card):
+    """One device plan on plan_bench's first row: one candidates launch,
+    one auction launch, and the same commits as the host tier."""
+    kept = []
+    plan_bench.run_sweep(scales=plan_bench.SCALES[:1], reps=2, nshards=8,
+                         device="cuda", on_row=lambda s, r: kept.append(s))
+    sol = kept[0]
+    before = candidates.launches, auction.launches
+    got = sol._device_plan()
+    assert (candidates.launches - before[0],
+            auction.launches - before[1]) == (1, 1)
+    sol._sweep()
+    want = dist._host_auction(sol._gp, sol._gg, sol._rw, sol._lens,
+                              sol._req_valid.copy(), sol.rounds, sol.m)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_graft_entry_runs_on_the_card(card):
+    fn, args = graft_entry.entry()
+    assert all(a.is_cuda for a in args)
+    out = fn(*args)
+    np.testing.assert_array_equal(
+        out.cpu().numpy(), fn(*(a.cpu() for a in args)).numpy())
+    before = candidates.launches, auction.launches
+    got = graft_entry.dryrun_multichip(8)
+    assert (candidates.launches - before[0],
+            auction.launches - before[1]) == (got["device_plans"],) * 2
 
 
 def _planned_cfg(**kw):
