@@ -39,14 +39,21 @@ def start_sidecar(world, cfg, abort_event=None, host: str = "127.0.0.1"):
     machines reach this one at for multi-host worlds (servers on other
     hosts must stream snapshots here).
 
-    On ``device="cuda"`` the greedy-sweep kernel is built here, before the
-    world starts, so no planning round waits on the compiler."""
+    On ``device="cuda"`` the greedy-sweep kernel is built here, and the
+    card's context opened, before the world starts, so no planning round
+    waits on the compiler or on CUDA's start-up: a small world's first
+    consumers drain their home server in well under the second the first
+    solve on a cold card took."""
     from adlb_tpu_torch.runtime.transport_tcp import TcpEndpoint
 
     if cfg.balancer == "tpu" and cfg.device == "cuda":
+        import torch
+
         from adlb_tpu_torch.balancer import greedy_sweep
+        from adlb_tpu_torch.balancer.solve import check_device
 
         greedy_sweep.build()
+        torch.zeros(1, device=check_device(cfg.device))  # the context
     ep = TcpEndpoint(
         world.nranks, {world.nranks: (host, 0)},
         binary_peers=set(world.server_ranks),

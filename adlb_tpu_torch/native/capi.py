@@ -49,14 +49,16 @@ def build_libadlb() -> str:
 
 def build_example(src: str, out: Optional[str] = None) -> str:
     """Compile a C example against the port's libadlb (rpath into the
-    build directory); returns the binary path."""
+    build directory's real path, which outlives a link the package was
+    imported through); returns the binary path."""
     lib = build_libadlb()
     out = out or os.path.join(
         BUILD_DIR, "adlb_" + os.path.splitext(os.path.basename(src))[0])
+    rpath = os.path.realpath(BUILD_DIR)
     try:
         return compile_to(out, [src, lib], lambda tmp: [
             "gcc", "-O2", f"-I{_INCLUDE}", "-o", tmp, src,
-            f"-L{BUILD_DIR}", "-ladlb", f"-Wl,-rpath,{BUILD_DIR}", "-lm",
+            f"-L{BUILD_DIR}", "-ladlb", f"-Wl,-rpath,{rpath}", "-lm",
         ])
     except subprocess.CalledProcessError as e:
         raise RuntimeError(f"example build failed:\n{e.stderr}") from e
@@ -87,7 +89,7 @@ def run_native_probe(
         exhaust_check_interval=min(base.exhaust_check_interval, 0.2),
     )
     exe = build_example(os.path.join(_REPO, "examples", example))
-    results, _stats, _planner = run_native_world(
+    results, _stats = run_native_world(
         n_clients=num_app_ranks,
         nservers=nservers,
         types=list(types),
@@ -182,9 +184,9 @@ def run_native_world(
     """Python servers (threads) + native client processes (one per app rank).
 
     Returns (results: list of (returncode, stdout, stderr) per client,
-    server_stats: dict rank -> stats, planner: the planning sidecar's
-    counts at its pseudo-rank, as in ``WorldResult.planner``; empty
-    unless native servers plan with ``balancer="tpu"``).
+    server_stats: dict rank -> stats), as the JAX package's function does.
+    A planning sidecar (native servers with ``balancer="tpu"``) runs on a
+    thread of this process; its counts are ``SidecarThread.planner()``.
     """
     from adlb_tpu_torch.runtime.debug_server import DebugServer
     from adlb_tpu_torch.runtime.server import Server
@@ -394,12 +396,10 @@ def run_native_world(
                     )
         os.unlink(rendezvous)
 
-    planner = {}
     if sidecar_thread is not None:
         from adlb_tpu_torch.balancer.sidecar import raise_if_failed
 
         raise_if_failed(sidecar_thread)  # the cause, before its collateral
-        planner[world.nranks] = sidecar_thread.planner()
     if errors:
         raise errors[0]
-    return results, server_stats, planner
+    return results, server_stats

@@ -35,7 +35,7 @@ from adlb_tpu_torch.obs.flight import FlightRecorder
 from adlb_tpu_torch.obs.metrics import Registry, attach
 from adlb_tpu_torch.runtime.messages import Msg, Tag, msg
 from adlb_tpu_torch.runtime.trace import PID_APP, Tracer
-from adlb_tpu_torch.runtime.transport import Endpoint
+from adlb_tpu_torch.runtime.transport import UP_PEER_GRACE, Endpoint
 from adlb_tpu_torch.runtime.world import Config, WorldSpec, normalize_req_types
 from adlb_tpu_torch.types import (
     ADLB_BACKOFF,
@@ -318,7 +318,16 @@ class Client:
         a server destination additionally resolves through the takeover
         map (stamped ``fo_from`` so the buddy translates content
         addresses), and exhausted retries wait out one takeover window
-        before giving up; otherwise an unreachable peer is terminal."""
+        before giving up; otherwise an unreachable peer is terminal.
+
+        Under failover a server send connects with a short grace
+        (``UP_PEER_GRACE``: every listener was up before the app ran, so
+        a refusal means the server died), and each failed send
+        first applies the takeover notes already queued for this rank: a
+        rank whose first frame to a server comes after that server died
+        re-sends to its buddy at once, instead of spending every retry
+        on the dead rank's connect grace while the note that remaps it
+        waits unread."""
         attempts = self.cfg.reconnect_attempts
         if dest in getattr(self.ep, "binary_peers", ()):
             # native servers implement none of the duplicate-request
@@ -333,11 +342,18 @@ class Client:
             routed = self._route(dest)
             if routed != dest and self.world.is_server(dest):
                 m.data["fo_from"] = dest
+            failover = self._failover_policy() and \
+                self.world.is_server(routed)
             try:
-                self.ep.send(routed, m)
+                if failover:
+                    self.ep.send(routed, m, connect_grace=UP_PEER_GRACE)
+                else:
+                    self.ep.send(routed, m)
                 return
             except OSError as e:
                 attempt += 1
+                if failover and self._poll_takeover(routed):
+                    continue  # remapped: re-send to the buddy at once
                 if attempt > attempts:
                     if (
                         self._failover_policy()
@@ -370,6 +386,17 @@ class Client:
                 )
                 sleep = self._backoff_sleep(max(sleep, 0.01))
 
+    def _poll_takeover(self, lost: int) -> bool:
+        """Apply the frames already queued for this rank, as
+        :meth:`_await_takeover` does, without waiting; returns True when a
+        TA_HOME_TAKEOVER among them remapped ``lost``."""
+        while self._route(lost) == lost:
+            m = self.ep.recv(timeout=0)
+            if m is None:
+                break
+            self._takeover_wait_frame(m)
+        return self._route(lost) != lost
+
     def _await_takeover(self, lost: int) -> bool:
         """Block (reading only control frames; everything else stays in
         the endpoint queue order via a bounded drain-and-redeliver) until
@@ -386,38 +413,43 @@ class Client:
             if self._route(lost) != lost:
                 return True
             m = self.ep.recv(timeout=0.2)
-            if m is None:
-                continue
-            if m.tag is Tag.TA_HOME_TAKEOVER:
-                self._apply_takeover(m)
-                continue
-            if m.tag is Tag.TA_ABORT:
-                self._dispatch_passive(m)  # raises AdlbAborted
-            if (
-                m.tag in (Tag.AM_APP, Tag.PEER_EOF)
-                or (m.tag is Tag.TA_PUT_RESP
-                    and m.data.get("put_id") in self._pending_puts)
-                or (m.tag is Tag.TA_RESERVE_RESP
-                    and self._active_stream is not None)
-            ):
-                # stash / settle / bank through the normal passive
-                # dispatch — these have a home regardless of context
-                try:
-                    self._dispatch_passive(m)
-                except AdlbError:
-                    # an unexpected-for-this-context frame must not turn
-                    # the takeover wait into a protocol error
-                    self.flight.record(
-                        f"frame {m.tag.name} deferred during takeover wait"
-                    )
-                continue
-            # anything else may be the very response an OUTER wait is
-            # parked on (this wait can run nested inside _wait via
-            # _apply_takeover's re-sends): dispatching here would DROP it
-            # as a stray and deadlock the outer wait against a healthy
-            # server — queue it for redelivery to the next _recv instead
-            self._redeliver.append(m)
+            if m is not None:
+                self._takeover_wait_frame(m)
         return self._route(lost) != lost
+
+    def _takeover_wait_frame(self, m: Msg) -> None:
+        """One frame read while waiting for a takeover: control frames
+        are applied, frames with a home regardless of context dispatched,
+        and the rest queued for the next ``_recv``."""
+        if m.tag is Tag.TA_HOME_TAKEOVER:
+            self._apply_takeover(m)
+            return
+        if m.tag is Tag.TA_ABORT:
+            self._dispatch_passive(m)  # raises AdlbAborted
+        if (
+            m.tag in (Tag.AM_APP, Tag.PEER_EOF)
+            or (m.tag is Tag.TA_PUT_RESP
+                and m.data.get("put_id") in self._pending_puts)
+            or (m.tag is Tag.TA_RESERVE_RESP
+                and self._active_stream is not None)
+        ):
+            # stash / settle / bank through the normal passive
+            # dispatch — these have a home regardless of context
+            try:
+                self._dispatch_passive(m)
+            except AdlbError:
+                # an unexpected-for-this-context frame must not turn
+                # the takeover wait into a protocol error
+                self.flight.record(
+                    f"frame {m.tag.name} deferred during takeover wait"
+                )
+            return
+        # anything else may be the very response an OUTER wait is
+        # parked on (this wait can run nested inside _wait via
+        # _apply_takeover's re-sends): dispatching here would DROP it
+        # as a stray and deadlock the outer wait against a healthy
+        # server — queue it for redelivery to the next _recv instead
+        self._redeliver.append(m)
 
     def _check_failover_resend(self, sent_to, dest, m_req):
         """While blocked on a response from ``sent_to``: a takeover that

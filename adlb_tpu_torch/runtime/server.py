@@ -52,7 +52,7 @@ from adlb_tpu_torch.runtime.queues import (
     WorkQueue,
     WorkUnit,
 )
-from adlb_tpu_torch.runtime.transport import Endpoint
+from adlb_tpu_torch.runtime.transport import UP_PEER_GRACE, Endpoint
 from adlb_tpu_torch.runtime.world import Config, WorldSpec
 from adlb_tpu_torch.types import (
     ADLB_BACKOFF,
@@ -689,6 +689,8 @@ class Server:
         self._m_server_dead = self.metrics.counter("server_dead")
         self._m_failover_promoted = self.metrics.counter("failover_promoted")
         self._m_failover_lost = self.metrics.counter("failover_lost")
+        self._m_relays_unresolved = self.metrics.counter(
+            "failover_relays_unresolved")
         self._g_repl_lag = self.metrics.gauge("repl_lag")
         # durable-service surface (wal_dir / jobs): WAL depth (entries
         # not yet durable) and fsync lag ride /metrics next to repl_lag
@@ -3767,7 +3769,11 @@ class Server:
         e = ent.get("epoch")
         if e:
             self.world.note_epoch(e)  # monotonic: only ever heals a lag
-        st = self.peers[src]
+        st = self.peers.get(src)
+        if st is None:
+            # a dead server's last gossip, drained after another server's
+            # SS_SERVER_DEAD made us forget it: nothing left to update
+            return
         st.nbytes = ent["nbytes"]
         st.qlen = ent["qlen"]
         st.hi_prio = dict(ent["hi_prio"])
@@ -3899,6 +3905,7 @@ class Server:
                 self.ep.send(
                     self.world.master_server_rank,
                     msg(Tag.SS_STATE, self.rank, snap=snap),
+                    **self._srv_grace(),
                 )
             except OSError:
                 if not self._failover:
@@ -4314,6 +4321,11 @@ class Server:
             if self.wlog is not None:
                 self.wlog.log_put(unit, -1, None)
             self.stats[InfoKey.NPUSHED_TO_HERE] += 1
+        # write-ahead replication, as for a put: the ack makes the source
+        # forget these units, so their log entries must be on the wire to
+        # the buddy first, or a death between the two loses them with no
+        # count (the ported soak's seed 1362 on the card)
+        self._flush_repl()
         self._send_srv(
             m.src,
             msg(Tag.SS_MIGRATE_ACK, self.rank,
@@ -4585,6 +4597,11 @@ class Server:
         self._finalized.add(m.src)
         if self.wlog is not None:
             self.wlog.log_app_done(m.src)
+        # the rank exits without an answer and never sends this again:
+        # its finalize must reach the buddy before anything else leaves,
+        # or a death in between leaves the promoted deputy waiting for
+        # a rank that is gone, and the world never ends
+        self._flush_repl()
         # a finalizing rank can never consume again: any leftover parked
         # entries (an abandoned stream's prefetch slots) must not attract
         # deliveries that would then be consumed into a closed endpoint
@@ -7059,7 +7076,7 @@ class Server:
         for _ in range(self.world.nservers):
             nxt = self._ring_next_live()
             try:
-                self.ep.send(nxt, make_msg(nxt))
+                self.ep.send(nxt, make_msg(nxt), **self._srv_grace())
                 return
             except OSError:
                 if not self._failover or nxt == self.rank:
@@ -7083,7 +7100,7 @@ class Server:
         if routed != dest:
             m.data.setdefault("fo_from", dest)
         try:
-            self.ep.send(routed, m)
+            self.ep.send(routed, m, **self._srv_grace())
             return routed
         except OSError:
             if not self._failover:
@@ -7093,6 +7110,14 @@ class Server:
             )
             self._note_server_unreachable(routed)
             return None
+
+    def _srv_grace(self) -> dict:
+        """Send options of a server-bound send that survives failover: the
+        short ``UP_PEER_GRACE`` (a refusal means the peer died, and the
+        15 s start-up grace would stall this reactor; a server whose
+        first snapshot to the master came after the master died waited
+        it out)."""
+        return {"connect_grace": UP_PEER_GRACE} if self._failover else {}
 
     def _note_server_unreachable(self, srv: int) -> None:
         """A send to a supposedly-live server failed: treat it as death
@@ -7488,9 +7513,12 @@ class Server:
         # client's fetch after an undelivered handle) may have died with
         # it. A fused relay's payload may already have been forwarded —
         # at-most-once wins (delivered-at-death, as in the rank-death
-        # sweep); a handle-shaped handoff unpins so the unit re-matches
-        # (an owner that DID receive the handle gets ADLB_RETRY on its
-        # fetch and re-reserves).
+        # sweep), and the unit is counted in failover_relays_unresolved
+        # (delivered or lost: the dead server may never have forwarded
+        # it, and no survivor can tell which); a handle-shaped
+        # handoff unpins so the unit re-matches (an owner that DID
+        # receive the handle gets ADLB_RETRY on its fetch and
+        # re-reserves).
         swept = 0
         for r in self.world.local_apps(dead):
             if r in self._dead_ranks:
@@ -7502,9 +7530,10 @@ class Server:
                 if self._relay_inflight.get(lease.seqno) == r:
                     self._relay_inflight.pop(lease.seqno, None)
                     self._consume(unit)
+                    self._m_relays_unresolved.inc()
                     self.flight.record(
                         f"relay_consumed_on_failover seqno={lease.seqno} "
-                        f"rank={r} via={dead}"
+                        f"rank={r} via={dead} (counted unresolved)"
                     )
                     continue
                 self.leases.release(lease.seqno)
@@ -8061,6 +8090,19 @@ class Server:
         self._takeover_pending = None
         self.activity += 1
         self._exhaust_held_since = None
+        if self.no_more_work or self.done_by_exhaustion:
+            # finish the dead master's terminal fan-out: it may have died
+            # halfway through declaring the world done, and a server it
+            # did not reach holds parked ranks nothing else releases (the
+            # verdict's handlers ignore a repeat)
+            tag = (Tag.SS_NO_MORE_WORK if self.no_more_work
+                   else Tag.SS_DONE_BY_EXHAUSTION)
+            for srv in self._live_servers():
+                try:
+                    self.ep.send(srv, msg(tag, self.rank),
+                                 **self._srv_grace())
+                except OSError:
+                    self._note_server_unreachable(srv)
         # re-initiate the termination ring: an END token the dead master
         # originated died with it (or voids on the bumped epoch); if the
         # world was terminating, this master re-kicks under the new epoch
@@ -8239,6 +8281,8 @@ class Server:
             self.metrics.value("failover_promoted")
         )
         s[InfoKey.FAILOVER_LOST] = float(self.metrics.value("failover_lost"))
+        s[InfoKey.FAILOVER_RELAYS_UNRESOLVED] = float(
+            self.metrics.value("failover_relays_unresolved"))
         s[InfoKey.FAILOVER_MTTR_MS] = float(self._g_fo_mttr.v)
         s[InfoKey.AVG_TIME_ON_RQ] = (
             self._rq_wait_sum / self._rq_wait_n if self._rq_wait_n else 0.0

@@ -20,6 +20,14 @@ from typing import Optional, Protocol
 
 from adlb_tpu_torch.runtime.messages import Msg
 
+#: the connect grace toward a peer whose listener is known to have been up
+#: (every rank of a world binds before any rank runs): the one reconnect
+#: after a peer's stream broke, and, under ``on_server_failure=
+#: "failover"``, every server-bound send. A refusal then means the peer
+#: died, and the 15 s start-up grace would stall the sender (a reactor, a
+#: client holding the takeover note that remaps it) for nothing
+UP_PEER_GRACE = 1.0
+
 
 class Endpoint(Protocol):
     rank: int

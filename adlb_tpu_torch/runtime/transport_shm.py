@@ -546,7 +546,7 @@ class ShmEndpoint:
         for seg in (_LEN.pack(nbody), *parts):
             mv = memoryview(seg)
             while mv.nbytes:
-                n = ring.write_some(mv)
+                n = self._closed_as_oserror(ring.write_some, mv)
                 if n:
                     mv = mv[n:]
                     deadline = None
@@ -583,8 +583,28 @@ class ShmEndpoint:
             return
         self._ring_bell(dest, ring, bell)
 
+    def _closed_as_oserror(self, op, *args):
+        """``op(*args)`` on a ring. Once this endpoint is closed its rings
+        are released, and a thread still sending (the frame that enacted
+        an injected disconnect, or one racing a close) gets the OSError a
+        closed socket gives, which failover absorbs as lost connectivity,
+        and not the released memoryview's ValueError."""
+        try:
+            return op(*args)
+        except ValueError:
+            if self._closed:
+                raise OSError("shm fabric: endpoint closed") from None
+            raise
+
     def _ring_bell(self, dest: int, ring: ShmRing, bell: Doorbell) -> None:
-        tail = ring._tail()
+        if self._closed:
+            return  # a closed endpoint's frames are never read
+        try:
+            tail = ring._tail()
+        except ValueError:
+            if self._closed:
+                return
+            raise
         last = self._rung.get(dest, -1)
         if last >= 0 and ring._head() < last:
             self.doorbell_suppressed += 1
@@ -671,8 +691,14 @@ class ShmEndpoint:
             got = 0
             occ = 0.0
             for src, st in items:
-                occ = max(occ, st.ring.occupancy)
-                if st.ring.read_into(st.buf):
+                try:
+                    occ = max(occ, st.ring.occupancy)
+                    n = st.ring.read_into(st.buf)
+                except ValueError:
+                    if self._closed:
+                        return got  # closed under this drain: rings gone
+                    raise
+                if n:
                     got += self._parse(src, st)
             reg = self._tcp.metrics
             if reg is not None and items:
@@ -752,9 +778,13 @@ class ShmEndpoint:
                 with self._rx_lock:
                     rings = [st.ring for st in self._rx.values()]
                 end = time.monotonic() + self._SPIN_S
-                while time.monotonic() < end:
-                    if any(r.avail() for r in rings):
-                        break
+                try:
+                    while time.monotonic() < end:
+                        if any(r.avail() for r in rings):
+                            break
+                except ValueError:
+                    if not self._closed:
+                        raise
                 continue
             if deadline is None:
                 remaining = None

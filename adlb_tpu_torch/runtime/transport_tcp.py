@@ -31,6 +31,7 @@ from adlb_tpu_torch.runtime.codec import (
     wire_native_ok,
 )
 from adlb_tpu_torch.runtime.messages import Msg, Tag
+from adlb_tpu_torch.runtime.transport import UP_PEER_GRACE
 
 _HDR = struct.Struct("<I")
 
@@ -357,8 +358,11 @@ class TcpEndpoint:
                 except OSError:
                     # one reconnect attempt (a FRESH stream, so
                     # restarting the frame from its first byte is safe);
-                    # beyond that the watchdog handles it
-                    sock = self._connect(dest, connect_grace)
+                    # beyond that the watchdog handles it. The peer's
+                    # listener was up when this stream connected, so a
+                    # refusal now means it died (UP_PEER_GRACE)
+                    sock = self._connect(dest, min(connect_grace,
+                                                   UP_PEER_GRACE))
                     with self._out_lock:
                         self._out[dest] = sock
                     self._send_iov(sock, frame)

@@ -79,6 +79,13 @@ class InfoKey(enum.IntEnum):
     # (every unit is completed, re-executed, or counted here), and
     # retrievable via ctx.get_quarantined() / the ops /deadletter view
     QUARANTINED = 18
+    # the port's addition: fused relays a holder consumed when the
+    # requester's home server died with the relay in flight (at most
+    # once). The dead home may or may not have forwarded the payload, so
+    # each such unit was either delivered or lost: a conservation check
+    # reads FAILOVER_LOST + FAILOVER_RELAYS_UNRESOLVED as the bound on
+    # the units missing (the JAX package counts these units nowhere)
+    FAILOVER_RELAYS_UNRESOLVED = 19
 
 
 @dataclasses.dataclass(frozen=True)

@@ -95,7 +95,19 @@ no result). Phases:
     reach the engine and the solver's job bias;
 13. phase 8's process world whose master is SIGKILLed: the promoted
     deputy, a child that never used CUDA before, plans on the card and
-    reports its counts back.
+    reports its counts back;
+14. the port's chaos soak (``scripts/chaos_soak_torch.py``) on the card,
+    over a fixed list of seeds whose draws are the master killed
+    ``mid_plan`` (twice), a server killed under ``failover`` and a worker
+    killed under ``reclaim`` (twice), every world planned on the card with
+    the host threshold 0 on the spawn plane: each iteration must pass, and
+    its planners together make device solves, one kernel launch each;
+15. the JAX package's suites whose worlds plan (``tests/torch_reference.py``,
+    ``CARD_FILES``) run unchanged against the port with the device
+    ``"cuda"`` and the host threshold 0, three files at a time: every test
+    passes (a failed test passes when run once more alone, or the phase
+    fails), and each file's pytest process launches the kernel once per
+    device solve.
 
 Each phase's wall time is printed.
 
@@ -1579,14 +1591,16 @@ def failover_app(ctx, nunits: int, work_s: float, progress=None):
 
 
 def check_failover(what: str, res, nunits: int, master: int) -> dict:
-    """Every unit completed, re-executed or counted in FAILOVER_LOST, the
-    master the one casualty, a takeover reported and the world not
-    aborted. Returns the world's unit accounting."""
+    """Every unit completed, re-executed or counted in FAILOVER_LOST or
+    FAILOVER_RELAYS_UNRESOLVED, the master the one casualty, a takeover
+    reported and the world not aborted. Returns the world's unit
+    accounting."""
     from adlb_tpu_torch.types import InfoKey
 
     consumed = [i for r, v in res.app_results.items() if r != 0
                 for i in v]
     lost = sum(s.get(int(InfoKey.FAILOVER_LOST), 0.0)
+               + s.get(int(InfoKey.FAILOVER_RELAYS_UNRESOLVED), 0.0)
                for s in res.server_stats.values())
     failovers = sum(s.get(int(InfoKey.NUM_FAILOVERS), 0.0)
                     for s in res.server_stats.values())
@@ -2188,6 +2202,120 @@ def run_process_failover(report, device="cuda", nunits=5_000, napps=32,
     return wall, counts
 
 
+#: phase 14's seeds of the port's chaos soak, and what each draws
+SOAK_SEEDS = {
+    1422: "master killed mid_plan (4 apps x 3 servers, reclaim)",
+    1652: "master killed mid_plan (5 apps x 4 servers, abort)",
+    1309: "server killed under failover (6 apps x 3 servers)",
+    1383: "worker killed under reclaim (3 apps x 3 servers)",
+    1327: "worker killed under reclaim (4 apps x 4 servers)",
+}
+
+
+def run_chaos_soak(report, device="cuda", seeds=None) -> dict:
+    """Phase 14: ``one_iter`` of the port's chaos soak for each of
+    ``seeds`` (``SOAK_SEEDS``) on ``device``. Every world plans
+    (``balancer="tpu"``) with the soak's host threshold 0; its ranks are
+    spawned, so each planner reports its counts in ``WorldResult.planner``
+    (``chaos_soak_torch.PLANNERS``), a SIGKILLed master excepted. Each
+    iteration's planners must make device solves, none on the host, one
+    kernel launch each on the card. A failed iteration is the soak's
+    ``CHAOS FAIL`` and fails the phase. Returns the totals."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "scripts"))
+    import chaos_soak_torch as soak
+
+    os.environ.setdefault("ADLB_FLIGHT_DIR",
+                          tempfile.mkdtemp(prefix="chaos-flight-"))
+    keep_solves()
+    totals = {"device_solves": 0, "greedy_sweep_launches": 0,
+              "solves_checked": 0, "worlds": 0}
+    for seed, what in (seeds or SOAK_SEEDS).items():
+        soak.PLANNERS.clear()
+        t0 = time.perf_counter()
+        try:
+            desc = soak.one_iter(seed, device=device)
+        except BaseException as e:
+            report(f"phase 14: CHAOS FAIL seed={seed} device={device}: "
+                   f"{e!r} (flight records in {os.environ['ADLB_FLIGHT_DIR']}"
+                   f", python scripts/obs_report_torch.py DIR)")
+            raise
+        wall = time.perf_counter() - t0
+        planners = {r: c for p in soak.PLANNERS for r, c in p.items()}
+        for r, c in planners.items():
+            check_planned(f"soak seed {seed} planner rank {r}", c, device,
+                          need_solves=False)
+        solves = sum(c["device_solves"] for c in planners.values())
+        launches = sum(c["greedy_sweep_launches"]
+                       for c in planners.values())
+        if desc.get("mode") != "tpu" or solves == 0:
+            raise AssertionError(f"soak seed {seed}: {desc}: planners "
+                                 f"{planners}, want device solves > 0")
+        totals["device_solves"] += solves
+        totals["greedy_sweep_launches"] += launches
+        totals["solves_checked"] += sum(c["solves_checked"]
+                                        for c in planners.values())
+        totals["worlds"] += len(soak.PLANNERS)
+        report(f"phase 14: seed {seed}, {what}: {desc} in {wall:.3f} s; "
+               f"planners by rank: " + ", ".join(
+                   f"{r}: {c['device_solves']} device solves, "
+                   f"{c['greedy_sweep_launches']} kernel launches, "
+                   f"{c['solves_checked']} checked"
+                   for r, c in sorted(planners.items())))
+    report(f"phase 14: {len(seeds or SOAK_SEEDS)} soak iterations on "
+           f"{device}, no failure; {totals['device_solves']} device solves, "
+           f"{totals['greedy_sweep_launches']} kernel launches, "
+           f"{totals['solves_checked']} kept solves == _host_greedy")
+    return totals
+
+
+def run_reference_suites(report, device="cuda", parallel=3) -> dict:
+    """Phase 15: the runner's card mode. Each of ``CARD_FILES`` runs
+    unchanged against the port on ``device`` with the host threshold 0, in
+    its own pytest process, ``parallel`` files at a time; every test must
+    pass (a failed test passes when run once more alone, or the phase
+    fails), and on the card each file's pytest process launches the
+    kernel once per device solve, none on the host, and every
+    CHECK_EVERY-th device solve of each solver equals ``_host_greedy``
+    (``check_planned``). Returns the totals."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    # the runner by its path: a ``tests`` package installed on the host
+    # would shadow this checkout's ``tests`` directory
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from torch_reference import CARD_FILES, run_reference_file
+
+    tmp = tempfile.mkdtemp(prefix="reference-suites-")
+
+    def one(name):
+        return name, run_reference_file(
+            name, device, os.path.join(tmp, name),
+            lambda line: report(f"phase 15: {line}"), host_threshold=0)
+
+    keep_solves()  # the pytest processes inherit ADLB_CHECK_SOLVES
+    totals = {"passed": 0, "reruns": 0, "device_solves": 0,
+              "greedy_sweep_launches": 0, "solves_checked": 0}
+    with ThreadPoolExecutor(parallel) as ex:
+        for name, c in ex.map(one, CARD_FILES):
+            k = c["kernels"]
+            check_planned(f"phase 15: {name}", k, device, need_solves=False)
+            totals["passed"] += c["passed"]
+            totals["reruns"] += len(c["reruns"])
+            for key in ("device_solves", "greedy_sweep_launches",
+                        "solves_checked"):
+                totals[key] += k[key]
+    if totals["device_solves"] == 0:
+        raise AssertionError("phase 15: no device solve in any file")
+    report(f"phase 15: {len(CARD_FILES)} reference files on {device}: "
+           f"{totals['passed']} tests passed, {totals['reruns']} rerun; "
+           f"{totals['device_solves']} device solves and "
+           f"{totals['greedy_sweep_launches']} kernel launches in the "
+           f"pytest processes, {totals['solves_checked']} kept solves == "
+           f"_host_greedy")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -2331,6 +2459,10 @@ def main() -> int:
     lap("12")
     _, counts13 = run_process_failover(report)
     lap("13")
+    counts14 = run_chaos_soak(report)
+    lap("14")
+    counts15 = run_reference_suites(report)
+    lap("15")
     report(f"all phases: {laps[-1] - laps[0]:.1f} s")
 
     leaked = [m for m in sys.modules
@@ -2370,7 +2502,9 @@ def main() -> int:
             "11_durable_worlds": [c["greedy_sweep_launches"]
                                   for c in counts11],
             "12_fleet_control": counts12["greedy_sweep_launches"],
-            "13_spawned_deputy": counts13["greedy_sweep_launches"]},
+            "13_spawned_deputy": counts13["greedy_sweep_launches"],
+            "14_chaos_soak": counts14["greedy_sweep_launches"],
+            "15_reference_suites": counts15["greedy_sweep_launches"]},
         "solves_checked_by_phase": {
             "3_in_process_world": counts["solves_checked"],
             "7_native_plane_sidecar": counts7["solves_checked"],
@@ -2380,7 +2514,12 @@ def main() -> int:
                                         for c in planners10.values()),
             "11_durable_worlds": [c["solves_checked"] for c in counts11],
             "12_fleet_control": counts12["solves_checked"],
-            "13_spawned_deputy": counts13["solves_checked"]},
+            "13_spawned_deputy": counts13["solves_checked"],
+            "14_chaos_soak": counts14["solves_checked"],
+            "15_reference_suites": counts15["solves_checked"]},
+        "device_solves_by_phase": {
+            "14_chaos_soak": counts14["device_solves"],
+            "15_reference_suites": counts15["device_solves"]},
         "failover_10": info10,
         "phase_walls_s": phase_walls,
         "by_case_65536x8192": by_case,

@@ -473,15 +473,26 @@ def test_sidecar_solves_on_the_card_equal_host_greedy(card, monkeypatch):
     assert counts["solves_wrong"] == 0
 
 
-def _failover_economy(ctx):
+def _failover_economy(ctx, planned, put):
+    """Rank 0 puts a unit at its home server every 2 ms until ``planned``
+    is set (by the promoted deputy's first device solve), at most 20,000,
+    and records how many in ``put``; every rank consumes until the world
+    ends. A rank homed away from rank 0's server is fed only by a plan,
+    so the backlog lasts until the deputy has planned on the card, however
+    long its planner takes to start there."""
     import struct
     import time
 
     from adlb_tpu_torch.types import ADLB_SUCCESS
 
     if ctx.rank == 0:
-        for i in range(200):
-            ctx.put(struct.pack("<q", i), 1)
+        n = 0
+        while not planned.is_set() and n < 20_000:
+            if ctx.put(struct.pack("<q", n), 1) != ADLB_SUCCESS:
+                break
+            n += 1
+            time.sleep(0.002)
+        put.append(n)
     got = []
     while True:
         rc, w = ctx.get_work([1])
@@ -496,24 +507,41 @@ def test_promoted_deputy_plans_on_the_card(card, monkeypatch):
     """An in-process world loses its master (server index 0 disconnects at
     its 40th outbound frame): the deputy builds its PlanEngine on the card
     mid-world and plans there, one kernel launch per device solve, every
-    solve of both planners equal to the numpy twin's."""
+    solve of both planners equal to the numpy twin's. Units enter rank 0's
+    home server until the deputy's first device solve has returned."""
+    import threading
+
     from adlb_tpu_torch.api import run_world
     from adlb_tpu_torch.balancer import solve
     from adlb_tpu_torch.types import InfoKey
 
+    planned, put = threading.Event(), []
+    dsolve = solve.AssignmentSolver._device_solve
+
+    def dsolve_(self, *arrays):
+        out = dsolve(self, *arrays)
+        s = getattr(threading.current_thread(), "server", None)
+        if s is not None and s.rank == 5:  # the deputy
+            planned.set()
+        return out
+
+    monkeypatch.setattr(solve.AssignmentSolver, "_device_solve", dsolve_)
     monkeypatch.setattr(solve, "check_every", 1)
     greedy_sweep.reset_counts()
     solve.reset_counts()
-    res = run_world(4, 3, [1], _failover_economy, cfg=_planned_cfg(
+    res = run_world(4, 3, [1], functools.partial(
+        _failover_economy, planned=planned, put=put), cfg=_planned_cfg(
         on_server_failure="failover", failover_client_wait=30.0,
+        put_routing="home",
         fault_spec={"seed": 5, "disconnect_server_at": {0: 40}}),
         timeout=300.0)
     counts = solve.planner_counts()
     assert res.server_casualties == [4] and not res.aborted
     done = {x for v in res.app_results.values() for x in v}
     lost = sum(s.get(int(InfoKey.FAILOVER_LOST), 0.0)
+               + s.get(int(InfoKey.FAILOVER_RELAYS_UNRESOLVED), 0.0)
                for s in res.server_stats.values())
-    assert len(set(range(200)) - done) <= lost
+    assert len(set(range(put[0])) - done) <= lost
     deputy = res.planner[5]
     assert deputy["device_solves"] > 0 and deputy["host_solves"] == 0
     assert deputy["greedy_sweep_launches"] == deputy["device_solves"]

@@ -173,13 +173,18 @@ def test_daemon_world_matches_reference():
     assert port.planner == {}  # steal mode: nothing plans
 
 
-def test_c_clients_on_port_daemons_match_reference():
+def test_c_clients_on_port_daemons_match_reference(monkeypatch):
     """C clients (the port's libadlb) against the port's daemons give the
     JAX-package world's answer."""
     if shutil.which("gcc") is None:
         pytest.skip("no C toolchain")
     from adlb_tpu.native import capi as ref_capi
     from adlb_tpu.runtime.world import Config as RefConfig
+    from adlb_tpu_torch.balancer import sidecar
+
+    sidecars = []
+    monkeypatch.setattr(sidecar, "start_sidecar",
+                        lambda *a, **kw: sidecars.append(a))
 
     def processed(results):
         for rc, out, err in results:
@@ -188,7 +193,7 @@ def test_c_clients_on_port_daemons_match_reference():
                    for _, out, _ in results)
 
     src = os.path.join(ROOT, "examples", "capi_smoke.c")
-    port_res, stats, planner = capi.run_native_world(
+    port_res, stats = capi.run_native_world(
         n_clients=3, nservers=2, types=[1, 2], exe=capi.build_example(src),
         cfg=Config(server_impl="native", exhaust_check_interval=0.2),
         timeout=90.0)
@@ -199,7 +204,48 @@ def test_c_clients_on_port_daemons_match_reference():
         timeout=90.0)
     assert processed(port_res) == processed(ref_res) == 24
     assert len(stats) == 2
-    assert planner == {}  # steal mode: no sidecar
+    assert sidecars == []  # steal mode: no sidecar
+
+
+def test_example_rpath_is_the_build_directorys_real_path():
+    """A C example finds the port's libadlb through the build directory's
+    real path: a binary built by a process that imported the package
+    through a link (the reference-suite runner's staged root) still loads
+    after that link is gone."""
+    if shutil.which("gcc") is None or shutil.which("readelf") is None:
+        pytest.skip("no C toolchain")
+    exe = capi.build_example(os.path.join(ROOT, "examples", "capi_smoke.c"))
+    dyn = subprocess.run(["readelf", "-d", exe], check=True,
+                         capture_output=True, text=True).stdout
+    assert f"[{os.path.realpath(BUILD)}]" in dyn, dyn
+
+
+@pytest.mark.parametrize("mode,impl", [("steal", "python"),
+                                       ("tpu", "python"), ("tpu", "native")],
+                         ids=["steal", "tpu", "tpu-sidecar"])
+def test_run_native_world_returns_the_reference_pair(mode, impl):
+    """``run_native_world`` called as the JAX package's callers call it
+    (``tests/test_capi.py::test_capi_smoke``) returns the same pair,
+    ``(results, server_stats)``, also when a sidecar plans for native
+    servers."""
+    if shutil.which("gcc") is None:
+        pytest.skip("no C toolchain")
+    exe = capi.build_example(os.path.join(ROOT, "examples", "capi_smoke.c"))
+    results, stats = capi.run_native_world(
+        n_clients=3,
+        nservers=2,
+        types=[1, 2],
+        exe=exe,
+        cfg=Config(balancer=mode, server_impl=impl,
+                   exhaust_check_interval=0.2, device="cpu"),
+        timeout=90.0,
+    )
+    for rc, out, err in results:
+        assert rc == 0, f"exit {rc}\nstdout:{out}\nstderr:{err}"
+        assert "OK" in out
+    assert len(stats) == 2
+    assert sum(int(out.split("processed=")[1].split()[0])
+               for _, out, _ in results) == 24
 
 
 @pytest.mark.parametrize("name", ["coinop_native", "trickle_native"])

@@ -37,6 +37,7 @@ from adlb_tpu_torch.workloads import nq
 
 TYPES = (1, 2, 3, 4)
 ANSWER = 9
+GO = 10
 NUNITS = 160
 NAPPS = 6
 
@@ -47,8 +48,20 @@ def _value(i):
 
 def master_worker(ctx):
     """Rank 0 puts NUNITS typed, prioritised units at its home server and
-    sums the answers; workers reserve and get until the world ends."""
+    sums the answers; workers reserve and get until the world ends.
+
+    Only a plan can feed a worker homed at another server than rank 0's,
+    so the workers that share rank 0's home wait for a ``GO`` unit, which
+    each other worker puts to them once it has been fed: every unit stays
+    queued until the planner has solved, however fast the world runs."""
     success = 1  # ADLB_SUCCESS in both packages
+    home0 = ctx.world.home_server(0)
+    local = [r for r in range(1, NAPPS) if ctx.world.home_server(r) == home0]
+    if ctx.rank in local:
+        rc, r = ctx.reserve([GO])
+        if rc != success:
+            return []
+        ctx.get_reserved(r.handle)
     if ctx.rank == 0:
         for i in range(NUNITS):
             ctx.put(i.to_bytes(4, "little"), TYPES[i % 4],
@@ -70,6 +83,9 @@ def master_worker(ctx):
         if rc != success:
             return seen
         i = int.from_bytes(buf, "little")
+        if not seen and ctx.rank not in local:
+            for r in local:
+                ctx.put(b"go", GO, target_rank=r)
         seen.append(i)
         ctx.put(_value(i).to_bytes(8, "little"), ANSWER, target_rank=0)
 
@@ -97,7 +113,7 @@ def reference_total():
     from adlb_tpu.runtime.transport_tcp import spawn_world as ref_spawn
     from adlb_tpu.runtime.world import Config as RefConfig
 
-    ref = ref_spawn(NAPPS, 2, TYPES + (ANSWER,), master_worker,
+    ref = ref_spawn(NAPPS, 2, TYPES + (ANSWER, GO), master_worker,
                     cfg=_planned(RefConfig, fabric="tcp"), timeout=120.0,
                     start_method="spawn")
     return _check(ref)
@@ -110,7 +126,7 @@ def test_process_world_matches_reference(fabric, reference_total):
 
         if not shm_available():
             pytest.skip("host cannot run the shared-memory fabric")
-    port = spawn_world(NAPPS, 2, TYPES + (ANSWER,), master_worker,
+    port = spawn_world(NAPPS, 2, TYPES + (ANSWER, GO), master_worker,
                        cfg=_planned(Config, device="cpu", **FABRICS[fabric]),
                        timeout=90.0)
     assert _check(port) == reference_total == sum(map(_value, range(NUNITS)))
@@ -171,7 +187,7 @@ def test_card_planner_never_forks(monkeypatch):
     monkeypatch.setattr(greedy_sweep, "build", no_build)
     before = multiprocessing.active_children()
     with pytest.raises(ValueError, match="fork.*card"):
-        spawn_world(NAPPS, 2, TYPES + (ANSWER,), master_worker, cfg=cfg,
+        spawn_world(NAPPS, 2, TYPES + (ANSWER, GO), master_worker, cfg=cfg,
                     start_method="fork", timeout=30.0)
     assert multiprocessing.active_children() == before
 
@@ -183,7 +199,7 @@ def test_master_planning_failure_ends_the_world(monkeypatch):
     # the forked master inherits the broken plain version
     monkeypatch.setattr(greedy_sweep, "greedy_assign_torch", broken)
     with pytest.raises(RuntimeError, match="balancer failed"):
-        spawn_world(NAPPS, 2, TYPES + (ANSWER,), master_worker,
+        spawn_world(NAPPS, 2, TYPES + (ANSWER, GO), master_worker,
                     cfg=_planned(Config, device="cpu", fabric="tcp"),
                     timeout=60.0, start_method="fork")
 

@@ -1,0 +1,12 @@
+"""The JAX package's suites of service mode (jobs multiplexed over one fleet),
+run unchanged against the port on the CPU, one case per reference file
+(``tests/torch_reference.py``)."""
+
+import pytest
+
+from torch_reference import GROUPS, run_reference_file
+
+
+@pytest.mark.parametrize("name", GROUPS["service"])
+def test_reference_suite_passes_on_the_port(name, tmp_path):
+    run_reference_file(name, "cpu", str(tmp_path))

@@ -113,24 +113,36 @@ def test_sidecar_plans_on_the_configured_device(monkeypatch):
 
 
 def test_run_native_world_reports_the_sidecars_planning(monkeypatch):
-    """``run_native_world`` returns the sidecar's solves, rounds and checked
-    solves at its pseudo-rank, as ``spawn_world`` does."""
+    """The sidecar thread that ``run_native_world`` starts reports its
+    solves, rounds and checked solves (``SidecarThread.planner()``) at its
+    pseudo-rank, as ``spawn_world`` does."""
     import os
 
+    from adlb_tpu_torch.balancer import sidecar
     from adlb_tpu_torch.native import capi
 
+    threads = []
+    real = sidecar.start_sidecar
+
+    def spy(*args, **kw):
+        ep, thread = real(*args, **kw)
+        threads.append(thread)
+        return ep, thread
+
+    monkeypatch.setattr(sidecar, "start_sidecar", spy)
     monkeypatch.setattr(solve, "check_every", 1)
     exe = capi.build_example(os.path.join(capi._REPO, "examples",
                                           "hotspot_c.c"))
-    results, stats, planner = capi.run_native_world(
+    results, stats = capi.run_native_world(
         n_clients=6, nservers=3, types=[1], exe=exe,
         cfg=_cfg(server_impl="native"),
         env_extra={"ADLB_PUT_ROUTING": "home", "ADLB_HOT_NTASKS": "200",
                    "ADLB_HOT_WORK_US": "1000"}, timeout=120.0)
     assert all(rc == 0 for rc, _, _ in results), results
     assert sorted(stats) == [6, 7, 8]
-    counts = planner[9]  # the sidecar: one past the world's ranks
-    assert list(planner) == [9]
+    assert len(threads) == 1
+    assert threads[0].world.nranks == 9  # the sidecar: one past the ranks
+    counts = threads[0].planner()
     assert counts["device_solves"] > 0 and counts["host_solves"] == 0
     assert counts["greedy_sweep_launches"] == 0  # CPU: the plain version
     assert counts["solves_checked"] == counts["device_solves"]

@@ -103,19 +103,25 @@ def test_port_world_matches_reference_world():
 
 
 def test_port_world_imports_no_jax():
-    # rank 0 puts a few units; every rank consumes until exhaustion
+    # rank 0 puts a few units at its home server; every rank consumes
+    # until exhaustion. Only a plan feeds the ranks homed at the other
+    # server, so the ranks that share rank 0's home start once the planner
+    # has made its first device solve, not after a fixed time
     code = (
-        "import sys\n"
+        "import sys, time\n"
         "from adlb_tpu_torch import run_world, ADLB_SUCCESS\n"
+        "from adlb_tpu_torch.balancer.solve import solve_counts\n"
         "from adlb_tpu_torch.runtime.world import Config\n"
         "def app(ctx):\n"
         "    if ctx.rank == 0:\n"
         "        for i in range(20): ctx.put(b'x', 1, work_prio=i)\n"
+        "    home0 = ctx.world.home_server(0)\n"
+        "    if ctx.world.home_server(ctx.rank) == home0:\n"
+        "        while solve_counts['device'] == 0: time.sleep(0.005)\n"
         "    while True:\n"
         "        rc, r = ctx.reserve([1])\n"
         "        if rc != ADLB_SUCCESS: return 0\n"
         "        ctx.get_reserved(r.handle)\n"
-        "from adlb_tpu_torch.balancer.solve import solve_counts\n"
         "cfg = Config(balancer='tpu', device='cpu', solver_host_threshold=0,\n"
         "             put_routing='home')\n"
         "run_world(num_app_ranks=4, nservers=2, types=[1], app_fn=app,\n"
@@ -341,3 +347,29 @@ def test_device_solve_failure_aborts_the_world(monkeypatch):
             app_fn=_make_app(adlb_tpu_torch.ADLB_SUCCESS),
             cfg=_planned(Config, device="cpu"), timeout=60)
     assert tsolve.solve_counts["host"] == host  # no numpy fallback
+
+
+def test_unregistered_app_payload_class_refused():
+    """The port's twin of ``tests/test_tcp_world.py::
+    test_unregistered_app_payload_class_refused``, with the port's module
+    path: an app-message payload whose class is not registered via
+    ``register_safe_pickle`` is refused, and registering
+    ``adlb_tpu_torch.runtime.world.Config`` makes the same bytes load."""
+    import pickle
+
+    from adlb_tpu_torch.runtime import codec as _codec
+    from adlb_tpu_torch.runtime.codec import (loads_restricted,
+                                              register_safe_pickle)
+    from adlb_tpu_torch.runtime.messages import Tag, msg
+
+    body = pickle.dumps(msg(Tag.AM_APP, 2, payload=Config(), apptag=1),
+                        protocol=pickle.HIGHEST_PROTOCOL)
+    with pytest.raises(pickle.UnpicklingError, match="register_safe_pickle"):
+        loads_restricted(body)
+    register_safe_pickle("adlb_tpu_torch.runtime.world", "Config")
+    try:
+        m = loads_restricted(body)
+        assert isinstance(m.data["payload"], Config)
+    finally:
+        _codec._SAFE_PICKLE_GLOBALS.discard(
+            ("adlb_tpu_torch.runtime.world", "Config"))
