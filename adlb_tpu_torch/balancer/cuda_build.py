@@ -71,3 +71,21 @@ def build_all(sources: Sequence[Path]) -> List[Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return [out for _, out, _, _ in jobs]
+
+
+def card_label() -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (the
+    name alone when ``nvidia-smi`` cannot be read): written beside every
+    time taken on the card, since a card set below its maximum power runs
+    slower under load."""
+    import torch
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.TimeoutExpired):
+        return f"{torch.cuda.get_device_name(0)}, power limit not read"

@@ -402,6 +402,12 @@ def main(argv=None) -> int:
         out = run_sweep(scales=scales, reps=20 if args.quick else 40,
                         nshards=args.nshards, auction=args.auction,
                         device=args.device, check_host=args.check_host)
+        from adlb_tpu_torch.balancer import auction, candidates
+
+        # the kernels' own counts over the sweep (0 on the CPU, where the
+        # plain versions run)
+        out["launches"] = {"shard_candidates": candidates.launches,
+                           "auction": auction.launches}
     print(json.dumps(out))
     return 0
 

@@ -1643,9 +1643,41 @@ class Client:
                         f"terminally rejected (rc={rc})",
                         file=sys.stderr,
                     )
-            self._send_retry(self.home, msg(Tag.FA_LOCAL_APP_DONE,
-                                            self.rank))
+            fin = msg(Tag.FA_LOCAL_APP_DONE, self.rank)
+            if self._failover_policy():
+                fin.data["ack"] = True
+            self._send_retry(self.home, fin)
+            if self._failover_policy():
+                self._await_finalize_ack(fin)
         return rc
+
+    def _await_finalize_ack(self, fin: Msg) -> None:
+        """Under failover the home answers a finalize once the frame that
+        replicates it to the buddy has left. A home that dies before it
+        answers may have taken the finalize with it, and the buddy that
+        adopts this rank would wait for it forever: a takeover re-sends
+        it there. A home that stays silent for the failover window (it
+        ended without reading the frame, or died with no takeover)
+        leaves the rank to exit, as one without failover does."""
+        sent_to = self._route(self.home)
+        deadline = time.monotonic() + self.cfg.failover_client_wait
+        while time.monotonic() < deadline:
+            if self._abort_event is not None and self._abort_event.is_set():
+                self.aborted = True
+                raise AdlbAborted(-1)
+            m = self._recv(timeout=0.2)
+            if m is not None:
+                if m.tag is Tag.TA_MEMBER_RESP and m.data.get("finalized"):
+                    return
+                self._dispatch_passive(m, waiting=Tag.TA_MEMBER_RESP)
+            if self._route(self.home) != sent_to:
+                self.flight.record("re-sending finalize after takeover")
+                self._send_retry(self.home, fin)
+                sent_to = self._route(self.home)
+                deadline = time.monotonic() + self.cfg.failover_client_wait
+        self.flight.record(
+            f"finalize unanswered by server {sent_to} within "
+            f"{self.cfg.failover_client_wait}s")
 
     def abort(self, code: int) -> None:
         """Bring the whole world down (reference ADLB_Abort,

@@ -4597,11 +4597,17 @@ class Server:
         self._finalized.add(m.src)
         if self.wlog is not None:
             self.wlog.log_app_done(m.src)
-        # the rank exits without an answer and never sends this again:
-        # its finalize must reach the buddy before anything else leaves,
-        # or a death in between leaves the promoted deputy waiting for
-        # a rank that is gone, and the world never ends
+        # the finalize reaches the buddy before anything else leaves: a
+        # death in between would leave the promoted deputy waiting for
+        # a rank that is gone, and the world would never end
         self._flush_repl()
+        if m.data.get("ack"):
+            # failover only: the rank waits for this answer, which leaves
+            # after the frame above, and re-sends its finalize to the
+            # buddy that takes over a home that died before answering
+            # (a re-sent finalize is a set-add everywhere, WAL replay too)
+            self._send_app(m.src, msg(Tag.TA_MEMBER_RESP, self.rank,
+                                      rc=ADLB_SUCCESS, finalized=True))
         # a finalizing rank can never consume again: any leftover parked
         # entries (an abandoned stream's prefetch slots) must not attract
         # deliveries that would then be consumed into a closed endpoint

@@ -107,7 +107,16 @@ no result). Phases:
     ``"cuda"`` and the host threshold 0, three files at a time: every test
     passes (a failed test passes when run once more alone, or the phase
     fails), and each file's pytest process launches the kernel once per
-    device solve.
+    device solve;
+16. the device rows of the port's benchmark (``bench_torch.py``) at
+    ``bench.py``'s sizes, through its own functions: the trickle world
+    with every solve on the card, ``solve_scale`` at 4096x512 and
+    16384x2048, ``solve_onchip`` at 4096x512 and 65536x8192 beside
+    ``null_rtt``, ``solve_chained`` at 4096x512 (10 and 410 calls) and
+    65536x8192 (10 and 50) in CUDA graphs, and ``plan_round_bench``'s
+    subprocess; the planned rows pass ``check_planned``, the first and
+    the last kernel output of every timed window equal ``_host_greedy``,
+    and the plan round launches kernel A.
 
 Each phase's wall time is printed.
 
@@ -144,19 +153,6 @@ NEG = -(2**31) + 1
 #: every CHECK_EVERY-th device solve of a planning process is held
 #: against ``_host_greedy`` (see ``solve.check_every``)
 CHECK_EVERY = 8
-
-
-def card_label() -> str:
-    import torch
-
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=30)
-        return out.stdout.strip().splitlines()[0]
-    except (OSError, IndexError, subprocess.TimeoutExpired):
-        return f"{torch.cuda.get_device_name(0)}, power limit not read"
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -2316,6 +2312,102 @@ def run_reference_suites(report, device="cuda", parallel=3) -> dict:
     return totals
 
 
+def _ms(x) -> str:
+    return "not timed (CPU)" if x is None else f"{x:.4f} ms"
+
+
+def run_bench_rows(report, device="cuda",
+                   scale_sizes=((8, 512, 64), (16, 1024, 128)),
+                   onchip_sizes=((8, 512, 64, 5), (16, 4096, 512, 3)),
+                   chain_sizes=((4096, 512, 10, 410), (65536, 8192, 10, 50)),
+                   trickle_units=200) -> dict:
+    """Phase 16: the device rows of the port's benchmark (``bench_torch``)
+    through its own functions, at ``bench.py``'s sizes: the trickle world
+    with every solve on the device, ``solve_scale``, ``solve_onchip`` with
+    ``null_rtt``, ``solve_chained`` (each chain one CUDA graph) and
+    ``plan_round_bench`` (its subprocess's kernel-A launches). Each row's
+    counts start at 0. Returns the K1 launches and kept or held solves
+    over the phase, and row 7's kernel-A launches."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import bench_torch as bt
+
+    keep_solves()
+
+    from adlb_tpu_torch.balancer import greedy_sweep as gs
+    from adlb_tpu_torch.balancer import solve
+
+    totals = {"greedy_sweep_launches": 0, "device_solves": 0,
+              "solves_checked": 0, "kernel_a_launches": 0}
+
+    def counted(name, what, run):
+        """Run one of row ``name``'s functions with the counts at 0 and
+        hold its counts to the benchmark's own rule (``check_row``);
+        the planned rows also pass ``check_planned``."""
+        gs.reset_counts()
+        solve.reset_counts()
+        out = run()
+        counts = solve.planner_counts()
+        direct = name in bt.DIRECT_K1
+        bt.check_row(name, counts, {f"{name}_k1_calls": out.get("calls")},
+                     device)
+        if not direct:
+            check_planned(f"phase 16 {what}", counts, device)
+        solves = out["calls"] if direct else counts["device_solves"]
+        checked = out["checked"] if direct else counts["solves_checked"]
+        totals["greedy_sweep_launches"] += counts["greedy_sweep_launches"]
+        totals["device_solves"] += solves
+        totals["solves_checked"] += checked
+        return out, (f"device solves {solves}, host solves "
+                     f"{counts['host_solves']}, K1 launches "
+                     f"{counts['greedy_sweep_launches']}; {checked} held "
+                     f"against _host_greedy: {counts['solves_wrong']} differ")
+
+    r, text = counted("device_trickle", "device trickle",
+                      lambda: bt.device_trickle(device, trickle_units))
+    report(f"phase 16: device trickle (8 apps x 4 servers, "
+           f"{trickle_units} units, host threshold 0): dispatch p50 "
+           f"{r['trickle_dispatch_p50_ms_tpu_device_solve']} ms, p90 "
+           f"{r['trickle_dispatch_p90_ms_tpu_device_solve']} ms; {text}")
+    for S, K, R in scale_sizes:
+        r, text = counted("solve_scale", f"solve_scale {S * K}x{S * R}",
+                          lambda: bt.solve_scale(S, K, R, device=device))
+        report(f"phase 16: solve_scale {S * K}x{S * R} (snapshot to "
+               f"{len(r['pairs'])} pairs, best of 3, host clock): "
+               f"{r['ms']} ms; {text}")
+    null = bt.null_rtt(device=device)
+    for S, K, R, reps in onchip_sizes:
+        r, text = counted("solve_onchip", f"solve_onchip {S * K}x{S * R}",
+                          lambda: bt.solve_onchip(S, K, R, null, reps=reps,
+                                                  device=device))
+        report(f"phase 16: solve_onchip {S * K}x{S * R} (route {r['route']}, "
+               f"best CUDA-event window of {reps}): {_ms(r['window_ms'])}, "
+               f"less null_rtt {_ms(null)}: {_ms(r['ms'])}; {text} "
+               f"(first and last timed call)")
+    for nt, nr, k1, k2 in chain_sizes:
+        r, text = counted("solve_chained", f"solve_chained {nt}x{nr}",
+                          lambda: bt.solve_chained(nt, nr, k1=k1, k2=k2,
+                                                   device=device))
+        report(f"phase 16: solve_chained {nt}x{nr} (route {r['route']}, chains "
+               f"of {k1} and {k2} in CUDA graphs: {r['chain_ms']} ms): "
+               f"{_ms(r['ms'])} per solve; {r['graph_solves']} solves in "
+               f"graph replays; {text} (first and last of each chain)")
+    gs.reset_counts()
+    r = bt.plan_round_bench(device)
+    a_launches = r["plan_round_kernel_launches"]["shard_candidates"]
+    if device == "cuda" and a_launches == 0:
+        raise AssertionError("phase 16 plan_round_bench: no kernel-A launch")
+    totals["kernel_a_launches"] = a_launches
+    report(f"phase 16: plan_round_bench (--quick --auction host, 8 logical "
+           f"shards): 1k p50 {r['plan_round_1k_ms']:.3f} ms, p90 "
+           f"{r['plan_round_1k_p90_ms']:.3f} ms; 10k p50 "
+           f"{r.get('plan_round_10k_ms', float('nan')):.3f} ms, p90 "
+           f"{r.get('plan_round_10k_p90_ms', float('nan')):.3f} ms; host-tier "
+           f"sweep {r['plan_round_sweep_ms']:.3f} ms; kernel launches in its "
+           f"process {r['plan_round_kernel_launches']}")
+    report(f"phase 16: {totals}")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -2324,6 +2416,7 @@ def main() -> int:
         return 1
     from adlb_tpu_torch.balancer import greedy_sweep as gs
     from adlb_tpu_torch.balancer import solve
+    from adlb_tpu_torch.balancer.cuda_build import card_label
 
     label = card_label()
     print(f"card: {label}")
@@ -2463,6 +2556,8 @@ def main() -> int:
     lap("14")
     counts15 = run_reference_suites(report)
     lap("15")
+    counts16 = run_bench_rows(report)
+    lap("16")
     report(f"all phases: {laps[-1] - laps[0]:.1f} s")
 
     leaked = [m for m in sys.modules
@@ -2504,7 +2599,8 @@ def main() -> int:
             "12_fleet_control": counts12["greedy_sweep_launches"],
             "13_spawned_deputy": counts13["greedy_sweep_launches"],
             "14_chaos_soak": counts14["greedy_sweep_launches"],
-            "15_reference_suites": counts15["greedy_sweep_launches"]},
+            "15_reference_suites": counts15["greedy_sweep_launches"],
+            "16_bench_rows": counts16["greedy_sweep_launches"]},
         "solves_checked_by_phase": {
             "3_in_process_world": counts["solves_checked"],
             "7_native_plane_sidecar": counts7["solves_checked"],
@@ -2516,10 +2612,12 @@ def main() -> int:
             "12_fleet_control": counts12["solves_checked"],
             "13_spawned_deputy": counts13["solves_checked"],
             "14_chaos_soak": counts14["solves_checked"],
-            "15_reference_suites": counts15["solves_checked"]},
+            "15_reference_suites": counts15["solves_checked"],
+            "16_bench_rows": counts16["solves_checked"]},
         "device_solves_by_phase": {
             "14_chaos_soak": counts14["device_solves"],
-            "15_reference_suites": counts15["device_solves"]},
+            "15_reference_suites": counts15["device_solves"],
+            "16_bench_rows": counts16["device_solves"]},
         "failover_10": info10,
         "phase_walls_s": phase_walls,
         "by_case_65536x8192": by_case,
@@ -2529,6 +2627,9 @@ def main() -> int:
         "source": "adlb_tpu_torch/csrc/candidates.cu",
         "replaces": "adlb_tpu/balancer/distributed.py:88",
         "launches": planner_launches["shard_candidates"],
+        "launches_by_phase": {
+            "5_sharded_planner": planner_launches["shard_candidates"],
+            "16_plan_round_bench": counts16["kernel_a_launches"]},
         "max_abs_err": cand_err,
         "ms": timed10k["candidates_ms"],
         "ms_back_to_back": timed10k["candidates_ms_back_to_back"],

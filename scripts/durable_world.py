@@ -167,10 +167,11 @@ def main() -> int:
         return 1
     import chip_smoke
     from adlb_tpu_torch.balancer import greedy_sweep
+    from adlb_tpu_torch.balancer.cuda_build import card_label
 
     args.card = "cpu"
     if args.device == "cuda":
-        args.card = chip_smoke.card_label()
+        args.card = card_label()
         greedy_sweep.build()
     chip_smoke.keep_solves()
     for mode in args.modes.split(","):

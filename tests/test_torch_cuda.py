@@ -548,3 +548,38 @@ def test_promoted_deputy_plans_on_the_card(card, monkeypatch):
     assert counts["greedy_sweep_launches"] == counts["device_solves"] \
         == counts["solves_checked"]
     assert counts["solves_wrong"] == 0
+
+
+@pytest.mark.cuda
+def test_bench_device_rows_on_the_card(card, monkeypatch):
+    """The port's benchmark (``bench_torch.py``) on the card at reduced
+    size: its device trickle (row 2, 100 units, every solve on the card)
+    launches the kernel once per device solve and every kept solve equals
+    ``_host_greedy``; ``solve_onchip`` (row 4, 8 x 512 x 64) times its
+    windows and its first and last timed outputs equal ``_host_greedy``,
+    one launch per call."""
+    import os
+    import sys
+
+    from adlb_tpu_torch.balancer import solve
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import bench_torch
+
+    monkeypatch.setattr(solve, "check_every", 1)
+    greedy_sweep.reset_counts()
+    solve.reset_counts()
+    row = bench_torch.device_trickle("cuda", n_tasks=100)
+    counts = solve.planner_counts()
+    assert row["trickle_dispatch_p50_ms_tpu_device_solve"] > 0
+    assert counts["device_solves"] > 0 and counts["host_solves"] == 0
+    assert counts["greedy_sweep_launches"] == counts["device_solves"] \
+        == counts["solves_checked"]
+    assert counts["solves_wrong"] == 0
+    greedy_sweep.reset_counts()
+    null = bench_torch.null_rtt(device="cuda")
+    r = bench_torch.solve_onchip(8, 512, 64, null, reps=3, device="cuda")
+    assert null > 0 and r["window_ms"] > 0 and r["ms"] >= 0
+    assert r["checked"] == 2 and r["wrong"] == 0
+    assert greedy_sweep.launches == r["calls"] == 4

@@ -34,6 +34,7 @@ from adlb_tpu_torch.api import run_world
 from adlb_tpu_torch.balancer import engine as engine_mod
 from adlb_tpu_torch.balancer import greedy_sweep
 from adlb_tpu_torch.balancer import solve
+from adlb_tpu_torch.runtime.client import Client
 from adlb_tpu_torch.runtime.messages import Msg, Tag
 from adlb_tpu_torch.runtime.server import Server
 from adlb_tpu_torch.runtime.transport import InProcFabric
@@ -83,7 +84,7 @@ def _until_planned_economy(ctx, planned, put=None, cap=20_000, burst=10):
     return _coverage_economy(ctx, nunits=0)
 
 
-def _assert_coverage(res, expect_casualty, nunits=N_UNITS):
+def _assert_coverage_only(res, nunits):
     done = [x for v in res.app_results.values() for x in v]
     lost = sum(s.get(int(InfoKey.FAILOVER_LOST), 0.0)
                + s.get(int(InfoKey.FAILOVER_RELAYS_UNRESOLVED), 0.0)
@@ -91,6 +92,10 @@ def _assert_coverage(res, expect_casualty, nunits=N_UNITS):
     missing = set(range(nunits)) - set(done)
     assert len(missing) <= lost, (
         f"units {sorted(missing)} vanished but only {lost} counted lost")
+
+
+def _assert_coverage(res, expect_casualty, nunits=N_UNITS):
+    _assert_coverage_only(res, nunits)
     assert res.server_casualties == [expect_casualty]
     assert not res.aborted
     assert sum(s.get(int(InfoKey.NUM_FAILOVERS), 0.0)
@@ -426,6 +431,178 @@ def test_a_finalize_reaches_the_buddy_before_anything_else():
     srv = _failover_server(MASTER)
     srv._on_local_app_done(Msg(tag=Tag.FA_LOCAL_APP_DONE, src=0))
     assert srv.ep.sent[:1] == [(DEPUTY, Tag.SS_REPL)], srv.ep.sent
+
+
+@pytest.mark.parametrize("ack", [False, True])
+def test_a_finalize_is_answered_after_its_replication(ack):
+    """Under failover a rank asks its home to answer its finalize
+    (``ack``), and the answer leaves only after the frame that
+    replicates the finalize to the buddy: a rank that has the answer
+    knows its finalize outlives the home. A finalize that asks for no
+    answer gets none, as before."""
+    from adlb_tpu_torch.runtime.messages import msg
+
+    srv = _failover_server(MASTER)
+    srv._on_local_app_done(msg(Tag.FA_LOCAL_APP_DONE, 0,
+                               **({"ack": True} if ack else {})))
+    answers = [(d, t) for d, t in srv.ep.sent if d == 0]
+    assert srv.ep.sent[:1] == [(DEPUTY, Tag.SS_REPL)], srv.ep.sent
+    assert answers == ([(0, Tag.TA_MEMBER_RESP)] if ack else [])
+
+
+@pytest.mark.parametrize("policy", ["abort", "failover"])
+def test_a_finalize_asks_for_an_answer_only_under_failover(policy):
+    """Without failover a finalize stays one frame that asks for nothing
+    and is not waited on, frame for frame as before; under failover it
+    asks for the answer and returns once it has it."""
+    world = WorldSpec(nranks=7, nservers=3, types=(T,))
+    fabric = InProcFabric(7)
+    cfg = Config(device="cpu", on_server_failure=policy)
+    client = Client(world, cfg, fabric.endpoint(0), fabric.abort_event)
+    if policy == "failover":
+        fabric.endpoint(0).inbox.put(Msg(tag=Tag.TA_MEMBER_RESP, src=MASTER,
+                                         data={"finalized": True}))
+    assert client.finalize() == ADLB_SUCCESS
+    fin = fabric.endpoint(MASTER).recv(timeout=0)
+    assert fin.tag is Tag.FA_LOCAL_APP_DONE and fin.src == 0
+    assert fin.data == ({"ack": True} if policy == "failover" else {})
+    assert fabric.endpoint(MASTER).recv(timeout=0) is None
+    assert fabric.endpoint(0).recv(timeout=0) is None
+
+
+class _Forwarding(_Recording):
+    """A recording endpoint that also sends."""
+
+    def send(self, dest, m, **kw):
+        super().send(dest, m, **kw)
+        self.ep.send(dest, m, **kw)
+
+
+def _wait_frame(ep, tag, src, timeout=10.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        m = ep.recv(timeout=0.1)
+        if m is not None and m.tag is tag and m.src == src:
+            return m
+    return None
+
+
+def test_an_adopted_rank_whose_finalize_died_with_the_master():
+    """Rank 3 finalized into the master, which died before the frame that
+    replicates it left: the deputy's mirror lacks the finalize. The rank
+    has no answer yet, so on the deputy's takeover note it re-sends its
+    finalize there: the deputy's ``_finalized`` gains it, the END ring
+    starts, and the rank's finalize returns. On the parent tree the
+    rank exited at once and the deputy waited for it forever."""
+    from adlb_tpu_torch.runtime import replica
+
+    world = WorldSpec(nranks=7, nservers=3, types=(T,))
+    cfg = Config(device="cpu", on_server_failure="failover",
+                 failover_client_wait=10.0)
+    fabric = InProcFabric(7)
+    srv = Server(world, cfg, fabric.endpoint(DEPUTY))
+    srv.ep = _Forwarding(srv.ep)
+    srv._on_local_app_done(Msg(tag=Tag.FA_LOCAL_APP_DONE, src=1))
+    client = Client(world, cfg, fabric.endpoint(3), fabric.abort_event)
+    out = {}
+    fin = threading.Thread(target=lambda: out.update(rc=client.finalize()),
+                           daemon=True)
+    fin.start()
+    # the master reads the finalize and dies before answering or
+    # replicating it
+    assert _wait_frame(fabric.endpoint(MASTER), Tag.FA_LOCAL_APP_DONE, 3)
+    fabric.endpoint(3).inbox.put(Msg(tag=Tag.PEER_EOF, src=MASTER))
+    mirror = replica.ReplicaMirror(MASTER)
+    mirror.finalized.add(0)
+    srv.mirrors[MASTER] = mirror
+    srv._server_eof_at[MASTER] = time.monotonic()
+    srv._dead_servers.add(MASTER)
+    srv._promote(MASTER)
+    assert 3 not in srv._finalized
+    again = _wait_frame(fabric.endpoint(DEPUTY), Tag.FA_LOCAL_APP_DONE, 3)
+    assert again is not None, "the rank never re-sent its finalize"
+    srv._handle(again)
+    srv._master_takeover_done()
+    fin.join(timeout=10.0)
+    assert out == {"rc": ADLB_SUCCESS}
+    assert not srv._aborted
+    assert srv._finalized >= {0, 1, 3}
+    assert 3 not in srv._dead_ranks
+    assert (6, Tag.SS_END_1) in srv.ep.sent, srv.ep.sent
+
+
+@pytest.mark.parametrize("on_worker_failure", ["reclaim", "abort"])
+def test_an_adopted_rank_killed_after_the_adoption_is_a_death(
+        on_worker_failure):
+    """Rank 3 holds a unit pinned at the master when the master dies; the
+    deputy adopts the unit with its lease. Rank 3 is then killed before
+    it finalizes: its EOF is a death, judged by the worker policy, as
+    before the acknowledged finalize. ``reclaim`` re-runs its unit and
+    does not count it finalized; ``abort`` aborts the world."""
+    from adlb_tpu_torch.runtime import replica
+    from adlb_tpu_torch.runtime.queues import WorkUnit
+
+    srv = Server(WorldSpec(nranks=7, nservers=3, types=(T,)),
+                 Config(device="cpu", on_server_failure="failover",
+                        on_worker_failure=on_worker_failure),
+                 InProcFabric(7).endpoint(DEPUTY))
+    srv.ep = _Recording(srv.ep)
+    log = replica.ReplicationLog(buddy=DEPUTY)
+    log.log_put(WorkUnit(seqno=10, work_type=T, prio=0, target_rank=-1,
+                         answer_rank=-1, payload=b"unit"), src=0, put_id=1)
+    log.log_pin(10, 3)
+    mirror = replica.ReplicaMirror(MASTER)
+    mirror.apply(log.take())
+    srv.mirrors[MASTER] = mirror
+    srv._server_eof_at[MASTER] = time.monotonic()
+    srv._dead_servers.add(MASTER)
+    srv._promote(MASTER)
+    srv._master_takeover_done()
+    (unit,) = list(srv.wq.units())
+    assert unit.pinned and unit.pin_rank == 3
+    srv._handle(Msg(tag=Tag.PEER_EOF, src=3))
+    if on_worker_failure == "abort":
+        assert srv._aborted
+        return
+    assert not srv._aborted
+    assert 3 in srv._dead_ranks
+    (unit,) = list(srv.wq.units())
+    assert not unit.pinned
+    assert not any(lease.owner == 3 for lease in srv.leases.leases())
+
+
+def _frame48_world():
+    """Seed 1362's master-kill world of ``scripts/chaos_soak_torch.py``
+    (3 apps x 4 servers, planned on the CPU with the host threshold 0,
+    ``abort`` for workers, 24 units), its master SIGKILLed at its 48th
+    outbound frame, where the finalize of a rank homed at the master can
+    die with it: 2 of 12 such worlds hung on the parent tree."""
+    return spawn_world(
+        3, 4, [1, 2], functools.partial(_coverage_economy, nunits=24),
+        timeout=20.0,
+        cfg=Config(balancer="tpu", device="cpu", solver_host_threshold=0,
+                   exhaust_check_interval=0.2, on_worker_failure="abort",
+                   on_server_failure="failover", failover_client_wait=30.0,
+                   fault_spec={"seed": 1362,
+                               "kill_server_at_frame": {0: 48}}))
+
+
+def test_frame48_master_kill_world_ends():
+    """The frame-48 world ends within 20 s, every unit consumed once or
+    counted lost, until the kill has landed three times (a world that
+    drains before the master's 48th frame loses no server and proves
+    nothing; at most five worlds)."""
+    killed = 0
+    for _ in range(5):
+        res = _frame48_world()
+        if not res.server_casualties:
+            _assert_coverage_only(res, nunits=24)
+            continue
+        _assert_coverage(res, expect_casualty=3, nunits=24)
+        killed += 1
+        if killed == 3:
+            break
+    assert killed >= 1, "the master's kill never landed"
 
 
 @pytest.mark.parametrize("verdict", ["no_more_work", "done_by_exhaustion"])
