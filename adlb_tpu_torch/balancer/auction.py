@@ -55,6 +55,8 @@ launches = 0
 _lib = None
 _lib_path = None
 _lib_lock = threading.Lock()
+#: the cards whose shared-memory limits this process has set
+_ready_on: set = set()
 #: the compiler's output (-Xptxas -v) of the build this process loaded
 build_log = ""
 
@@ -93,8 +95,18 @@ def build() -> Path:
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, restype
         _raise_on(lib.adlb_auction_init(), "auction init", lib)
+        _ready_on.add(torch.cuda.current_device())
         _lib, _lib_path = lib, out
         return out
+
+
+def _ready(device) -> None:
+    """Build the kernel, and set its shared-memory limit on ``device`` once
+    (:func:`build` sets it on the current card)."""
+    build()
+    cuda_build.once_per_card(
+        device, _ready_on, _lib_lock,
+        lambda: _raise_on(_lib.adlb_auction_init(), "auction init"))
 
 
 def _check(gp, gg, rwc, lens, open0, m: int) -> None:
@@ -132,21 +144,23 @@ class Workspace:
     first."""
 
     def __init__(self, T: int, C: int, m: int, device) -> None:
-        build()
+        _ready(device)
         self.shape = (T, C, m)
         self.lists_staged = bool(_lib.adlb_auction_stages_lists(T, C, m))
         self.threads = _lib.adlb_auction_threads(T, m)
-        self.out = torch.empty((T * (C + 1) + 1,), dtype=torch.int32,
-                               device=device)
-        nbytes = _lib.adlb_auction_scratch_bytes(T, C, m)
-        self.scratch = (torch.empty((nbytes,), dtype=torch.uint8,
-                                    device=device) if nbytes else None)
+        with torch.cuda.device(device):
+            self.out = torch.empty((T * (C + 1) + 1,), dtype=torch.int32,
+                                   device=device)
+            nbytes = _lib.adlb_auction_scratch_bytes(T, C, m)
+            self.scratch = (torch.empty((nbytes,), dtype=torch.uint8,
+                                        device=device) if nbytes else None)
         #: assigned [T, C + 1] and the rounds the last launch ran, as views
         self.assigned = self.out[:T * (C + 1)].view(T, C + 1)
         self.rounds_run = self.out[T * (C + 1)]
 
     def launch(self, gp, gg, rwc, lens, open0, rounds: int) -> torch.Tensor:
-        """One launch on the current stream; returns :attr:`assigned`."""
+        """One launch on the tensors' card and its current stream; returns
+        :attr:`assigned`."""
         global launches
         T, C, m = self.shape
         _check(gp, gg, rwc, lens, open0, m)
@@ -154,13 +168,14 @@ class Workspace:
             raise ValueError(f"workspace for T={T}, C={C} on "
                              f"{self.out.device}, got rwc "
                              f"{tuple(rwc.shape)} on {gp.device}")
-        _raise_on(_lib.adlb_auction(
-            gp.data_ptr(), gg.data_ptr(), gp.shape[1], rwc.data_ptr(),
-            lens.data_ptr(), open0.data_ptr(), T, C, m, rounds,
-            self.out.data_ptr(),
-            self.scratch.data_ptr() if self.scratch is not None else None,
-            torch.cuda.current_stream(gp.device).cuda_stream),
-            "auction launch")
+        with torch.cuda.device(gp.device):
+            _raise_on(_lib.adlb_auction(
+                gp.data_ptr(), gg.data_ptr(), gp.shape[1], rwc.data_ptr(),
+                lens.data_ptr(), open0.data_ptr(), T, C, m, rounds,
+                self.out.data_ptr(),
+                self.scratch.data_ptr() if self.scratch is not None else None,
+                torch.cuda.current_stream(gp.device).cuda_stream),
+                "auction launch")
         launches += 1
         return self.assigned
 
@@ -251,8 +266,7 @@ def auction(gp, gg, rwc, lens, open0, rounds: int, m: int,
     any other device raises."""
     if gp.device.type == "cuda":
         if work is None:
-            with torch.cuda.device(gp.device):
-                work = Workspace(rwc.shape[0], rwc.shape[1], m, gp.device)
+            work = Workspace(rwc.shape[0], rwc.shape[1], m, gp.device)
         elif work.shape[2] != m:
             raise ValueError(f"workspace for m={work.shape[2]}, got m={m}")
         return work.launch(gp, gg, rwc, lens, open0, rounds)

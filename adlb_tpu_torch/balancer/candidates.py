@@ -14,17 +14,22 @@ JAX package's ``_build_plan_fn``, all the auction reads (it never reads past
 index C + m < D).
 
 * :func:`shard_candidates` returns the per-shard lists ``cp, cg`` [nshards, T,
-  D] (the host tier merges them on the host); :func:`merged_candidates`
-  returns ``gp, gg`` [T, D] (the device tier hands them to the auction).
+  D] (the host tier merges them on the host, and with the table split across
+  cards each card's list is a run of the merge below);
+  :func:`merged_candidates` returns ``gp, gg`` [T, D] (the device tier hands
+  them to the auction); :func:`merge_runs` merges runs gathered from several
+  cards, ``cp, cg`` [n, T, D], into ``gp, gg`` [T, D] (the merge alone).
 * On CUDA tensors each is one launch of ``csrc/candidates.cu``, built with
   ``nvcc`` into ``adlb_tpu_torch/_build/`` at first use and loaded with
-  ``ctypes``; :class:`Workspace` keeps the outputs, the merge's runs and
-  tickets and, where the keys do not fit in shared memory, the kernel's
-  scratch buffer, from launch to launch.
+  ``ctypes``, on the tensors' card and its current stream;
+  :class:`Workspace` keeps the outputs, the merge's runs and tickets and,
+  where the keys do not fit in shared memory, the kernel's scratch buffer,
+  from launch to launch, and :class:`MergeWorkspace` the merge alone's
+  outputs.
 * On CPU tensors they run the plain version, :func:`_shard_candidates` (all
   shards in one batch of torch ops) and :func:`_merge_candidates` (one
   stable sort of a packed key), whose first ``D`` columns are the merged
-  candidates.
+  candidates (:func:`merge_runs_torch` for the merge alone).
 
 There is no fallback between the two: a CUDA tensor launches the kernel or
 raises.
@@ -47,10 +52,14 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "candidates.cu"
 #: kernel launches so far, counted on the host at each launch;
 #: chip_smoke.py zeroes it around the main path
 launches = 0
+#: launches of the merge alone (:class:`MergeWorkspace`), counted the same way
+merge_launches = 0
 
 _lib = None
 _lib_path = None
 _lib_lock = threading.Lock()
+#: the cards whose shared-memory limits this process has set
+_ready_on: set = set()
 #: the compiler's output (-Xptxas -v) of the build this process loaded
 build_log = ""
 
@@ -103,6 +112,14 @@ def _merge_candidates(cp, cg):
     return ap.gather(1, o), ag.gather(1, o)
 
 
+def merge_runs_torch(cp, cg, D: int):
+    """The plain version of the merge alone: the first D entries of each
+    type's merge of the runs ``cp, cg`` [n, T, D], ``gp, gg`` [T, D]."""
+    _check_runs(cp, cg, D)
+    gp, gg = _merge_candidates(cp, cg)
+    return gp[:, :D].contiguous(), gg[:, :D].contiguous()
+
+
 def candidates_torch(tp, tt, rk, T: int, D: int, merge: bool):
     """The plain version: the per-shard lists ``cp, cg`` [nshards, T, D], or
     with ``merge`` the first D columns of their merge, ``gp, gg`` [T, D]."""
@@ -135,6 +152,12 @@ def build() -> Path:
         lib = ctypes.PyDLL(str(out))  # keeps the interpreter lock
         sigs = {
             "adlb_candidates_init": ([], ctypes.c_int),
+            "adlb_candidates_merge_staged": ([ctypes.c_int] * 2,
+                                             ctypes.c_int),
+            "adlb_candidates_merge": ([ctypes.c_void_p] * 2
+                                      + [ctypes.c_longlong]
+                                      + [ctypes.c_int] * 3
+                                      + [ctypes.c_void_p] * 3, ctypes.c_int),
             "adlb_candidates_scratch_bytes": ([ctypes.c_int] * 5,
                                               ctypes.c_longlong),
             "adlb_candidates_max_d": ([], ctypes.c_int),
@@ -149,8 +172,18 @@ def build() -> Path:
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, restype
         _raise_on(lib.adlb_candidates_init(), "candidates init", lib)
+        _ready_on.add(torch.cuda.current_device())
         _lib, _lib_path = lib, out
         return out
+
+
+def _ready(device) -> None:
+    """Build the kernel, and set its shared-memory limits on ``device`` once
+    (:func:`build` sets them on the current card)."""
+    build()
+    cuda_build.once_per_card(
+        device, _ready_on, _lib_lock,
+        lambda: _raise_on(_lib.adlb_candidates_init(), "candidates init"))
 
 
 def _check(tp, tt, rk) -> None:
@@ -177,6 +210,28 @@ def _check(tp, tt, rk) -> None:
                              f"{x.stride()}")
 
 
+def _check_runs(cp, cg, D: int) -> None:
+    """The merge alone's input contract: int32 runs [n, T, D] on one device,
+    each run's entries contiguous, cp and cg strided alike."""
+    for name, x in (("cp", cp), ("cg", cg)):
+        if x.device != cp.device:
+            raise ValueError(f"{name} is on {x.device}, cp on {cp.device}")
+        if x.dtype != torch.int32 or x.dim() != 3:
+            raise ValueError(f"{name} must be a 3-d int32 tensor, got "
+                             f"{x.dim()}-d {x.dtype}")
+    n, T, Dr = cp.shape
+    if cg.shape != cp.shape or Dr != D:
+        raise ValueError(f"cp {tuple(cp.shape)} and cg {tuple(cg.shape)} "
+                         f"must both be [n, T, D={D}]")
+    for name, x in (("cp", cp), ("cg", cg)):
+        if x.stride(2) != 1 or (T > 1 and x.stride(1) != D) or (
+                n > 1 and (x.stride(0) != cp.stride(0)
+                           or x.stride(0) < T * D)):
+            raise ValueError(f"{name} must hold each run contiguous and the "
+                             f"cards' runs strided alike, got strides "
+                             f"{x.stride()}")
+
+
 def _row_stride(x) -> int:
     """Elements from one server row to the next (a size-1 row axis may
     carry any stride: the shard stride is then the row stride)."""
@@ -192,25 +247,26 @@ class Workspace:
 
     def __init__(self, ns: int, Sl: int, K: int, T: int, D: int,
                  device) -> None:
-        build()
+        _ready(device)
         if D > _lib.adlb_candidates_max_d():
             raise ValueError(f"D={D} is past the kernel's "
                              f"{_lib.adlb_candidates_max_d()}")
         self.shape = (ns, Sl, K, T, D)
         i32 = dict(dtype=torch.int32, device=device)
-        self.cands = torch.empty((2, ns, T, D), **i32)
-        self.gp = torch.empty((T, D), **i32)
-        self.gg = torch.empty((T, D), **i32)
-        self.runs = torch.empty((T * ns * D,), dtype=torch.int64,
-                                device=device)
-        self.tickets = torch.zeros((T,), **i32)  # the kernel keeps them 0
-        nbytes = _lib.adlb_candidates_scratch_bytes(ns, Sl, K, T, D)
-        self.scratch = (torch.empty((nbytes,), dtype=torch.uint8,
-                                    device=device) if nbytes else None)
+        with torch.cuda.device(device):
+            self.cands = torch.empty((2, ns, T, D), **i32)
+            self.gp = torch.empty((T, D), **i32)
+            self.gg = torch.empty((T, D), **i32)
+            self.runs = torch.empty((T * ns * D,), dtype=torch.int64,
+                                    device=device)
+            self.tickets = torch.zeros((T,), **i32)  # the kernel keeps them 0
+            nbytes = _lib.adlb_candidates_scratch_bytes(ns, Sl, K, T, D)
+            self.scratch = (torch.empty((nbytes,), dtype=torch.uint8,
+                                        device=device) if nbytes else None)
 
     def launch(self, tp, tt, rk, merge: bool):
-        """One launch on the current stream; returns ``(gp, gg)`` with
-        ``merge``, else the per-shard ``(cp, cg)``."""
+        """One launch on the tensors' card and its current stream; returns
+        ``(gp, gg)`` with ``merge``, else the per-shard ``(cp, cg)``."""
         global launches
         _check(tp, tt, rk)
         ns, Sl, K, T, D = self.shape
@@ -219,23 +275,60 @@ class Workspace:
                              f"{self.gp.device}, got {tuple(tp.shape)} on "
                              f"{tp.device}")
         cp, cg = self.cands[0], self.cands[1]
-        _raise_on(_lib.adlb_candidates(
-            tp.data_ptr(), tt.data_ptr(), rk.data_ptr(), _row_stride(tp),
-            _row_stride(tt), _row_stride(rk), ns, Sl, K, T, D, int(merge),
-            cp.data_ptr(), cg.data_ptr(), self.gp.data_ptr(),
-            self.gg.data_ptr(), self.runs.data_ptr(), self.tickets.data_ptr(),
-            self.scratch.data_ptr() if self.scratch is not None else None,
-            torch.cuda.current_stream(tp.device).cuda_stream),
-            "candidates launch")
+        with torch.cuda.device(tp.device):
+            _raise_on(_lib.adlb_candidates(
+                tp.data_ptr(), tt.data_ptr(), rk.data_ptr(), _row_stride(tp),
+                _row_stride(tt), _row_stride(rk), ns, Sl, K, T, D,
+                int(merge), cp.data_ptr(), cg.data_ptr(), self.gp.data_ptr(),
+                self.gg.data_ptr(), self.runs.data_ptr(),
+                self.tickets.data_ptr(),
+                self.scratch.data_ptr() if self.scratch is not None else None,
+                torch.cuda.current_stream(tp.device).cuda_stream),
+                "candidates launch")
         launches += 1
         return (self.gp, self.gg) if merge else (cp, cg)
+
+
+class MergeWorkspace:
+    """The merge alone's card buffers at one (n, T, D) shape: the merged
+    lists ``gp``, ``gg`` [T, D], reused from launch to launch. ``staged``:
+    the runs' keys fit in shared memory. Building the kernel comes first."""
+
+    def __init__(self, n: int, T: int, D: int, device) -> None:
+        _ready(device)
+        if D > _lib.adlb_candidates_max_d():
+            raise ValueError(f"D={D} is past the kernel's "
+                             f"{_lib.adlb_candidates_max_d()}")
+        self.shape = (n, T, D)
+        self.staged = bool(_lib.adlb_candidates_merge_staged(n, D))
+        with torch.cuda.device(device):
+            self.gp = torch.empty((T, D), dtype=torch.int32, device=device)
+            self.gg = torch.empty((T, D), dtype=torch.int32, device=device)
+
+    def launch(self, cp, cg):
+        """One launch on the runs' card and its current stream; returns
+        ``(gp, gg)``."""
+        global merge_launches
+        n, T, D = self.shape
+        _check_runs(cp, cg, D)
+        if tuple(cp.shape) != self.shape or cp.device != self.gp.device:
+            raise ValueError(f"workspace for runs [{n}, {T}, {D}] on "
+                             f"{self.gp.device}, got {tuple(cp.shape)} on "
+                             f"{cp.device}")
+        with torch.cuda.device(cp.device):
+            _raise_on(_lib.adlb_candidates_merge(
+                cp.data_ptr(), cg.data_ptr(), cp.stride(0), n, T, D,
+                self.gp.data_ptr(), self.gg.data_ptr(),
+                torch.cuda.current_stream(cp.device).cuda_stream),
+                "merge launch")
+        merge_launches += 1
+        return self.gp, self.gg
 
 
 def _run(tp, tt, rk, T: int, D: int, merge: bool, work):
     if tp.device.type == "cuda":
         if work is None:
-            with torch.cuda.device(tp.device):
-                work = Workspace(*tp.shape, T, D, tp.device)
+            work = Workspace(*tp.shape, T, D, tp.device)
         elif work.shape[3:] != (T, D):
             raise ValueError(f"workspace for (T, D) = {work.shape[3:]}, got "
                              f"{(T, D)}")
@@ -258,3 +351,19 @@ def merged_candidates(tp, tt, rk, T: int, D: int,
     """Merged candidates ``gp, gg`` [T, D] int32: the first D entries of each
     type's cross-shard merge, as :func:`shard_candidates` dispatches."""
     return _run(tp, tt, rk, T, D, True, work)
+
+
+def merge_runs(cp, cg, D: int, work: MergeWorkspace | None = None):
+    """The merge alone: ``gp, gg`` [T, D] int32, the first D entries of each
+    type's merge of the runs ``cp, cg`` [n, T, D] (each sorted by (prio desc,
+    gid asc) and padded, as :func:`shard_candidates` gives them). On CUDA
+    tensors one launch into ``work`` (a new :class:`MergeWorkspace` when
+    None), on CPU tensors :func:`merge_runs_torch`; any other device
+    raises."""
+    if cp.device.type == "cuda":
+        if work is None:
+            work = MergeWorkspace(*cp.shape, cp.device)
+        return work.launch(cp, cg)
+    if cp.device.type == "cpu":
+        return merge_runs_torch(cp, cg, D)
+    raise ValueError(f"no merge for device {cp.device}")

@@ -73,6 +73,22 @@ def build_all(sources: Sequence[Path]) -> List[Path]:
     return [out for _, out, _, _ in jobs]
 
 
+def once_per_card(device, done: set, lock, init) -> None:
+    """Call ``init()`` with ``device`` current, once per card: a loaded
+    kernel's function attributes (its shared-memory limit) are set per card.
+    ``done`` holds the card indices it ran on, under ``lock``."""
+    import torch
+
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    with lock:
+        if index not in done:
+            with torch.cuda.device(index):
+                init()
+            done.add(index)
+
+
 def card_label() -> str:
     """The card's name and power limit as ``nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader`` gives them (the

@@ -1,13 +1,24 @@
 """The sharded planner: the assignment solve over a task table cut into
-shards, the JAX package's ``balancer/distributed.py`` on one card.
+shards, the JAX package's ``balancer/distributed.py`` on the card.
 
 The task table — the big axis, servers x queue depth — is device-resident,
-cut by server into ``nshards`` logical shards of ``servers_per_shard`` rows
-each (the JAX package shards it over a device mesh; here the shards are a
-batch dimension on one device), and updated *incrementally* from
-per-server snapshot deltas (only changed rows ship; unchanged servers are
-skipped by a stamp fast path). Each planning round is three fixed-shape
-steps:
+cut by server into ``nshards`` shards of ``servers_per_shard`` rows each,
+and updated *incrementally* from per-server snapshot deltas (only changed
+rows ship; unchanged servers are skipped by a stamp fast path). Where the
+shards live is the solver's placement:
+
+- ``devices`` (a list of cards, or of "cpu" for tests): shard i is a piece
+  of the table resident on ``devices[i]``, as the JAX package keeps one
+  block per device of its mesh. Each card generates its own shard's
+  candidates, the planning device (``device``, ``devices[0]`` unless given)
+  gathers the cards' lists and merges them, and plans. This is what
+  :class:`~adlb_tpu_torch.balancer.engine.PlanEngine` builds with one shard
+  per visible card.
+- no ``devices``: ``nshards`` logical shards on the one ``device``, a batch
+  dimension of one table (the single-card twin the tests and the logical
+  ``nshards`` of ``plan_bench`` use).
+
+Each planning round is three fixed-shape steps:
 
 1. **sharded candidate generation** — every shard's top-D candidates of
    each type by (priority desc, gid), D = C + m + 1
@@ -27,21 +38,25 @@ steps:
 
 The solver runs one of two tiers over those steps:
 
-- ``auction="device"`` (default): all three steps run on the solver's
-  device as two launches of hand-written CUDA kernels — steps 1-2 as one
-  launch of ``csrc/candidates.cu`` (each type's merge cut to its first D
-  entries, all the auction reads), step 3 as one launch of
-  ``csrc/auction.cu`` (:mod:`adlb_tpu_torch.balancer.auction`) over
-  host-compacted requester ids (U = T*C distinct ids at most, so the
-  per-round scatters never touch O(requesters) state); their plain torch
-  versions on ``device="cpu"``. A planning round is two launches and one
-  [T, C+1] commit-table readback — no sort on the card, no per-round host
-  merge, no O(S) host work.
+- ``auction="device"`` (default): all three steps run on the cards as
+  launches of hand-written CUDA kernels — with logical shards steps 1-2 as
+  one launch of ``csrc/candidates.cu`` (each type's merge cut to its first
+  D entries, all the auction reads); across cards step 1 as one launch of
+  the same kernel on each card over its shard, a gather of each card's
+  [2, T, D] lists onto the planning card (a copy, not an all-gather: the
+  merge and the auction run once, where the JAX program replicates them on
+  every device) and step 2 as one launch of its merge alone; step 3 as one
+  launch of ``csrc/auction.cu`` (:mod:`adlb_tpu_torch.balancer.auction`)
+  on the planning card over host-compacted requester ids (U = T*C distinct
+  ids at most, so the per-round scatters never touch O(requesters)
+  state); their plain torch versions on ``"cpu"``. A planning round ends
+  in one [T, C+1] commit-table readback — no sort on the card, no
+  per-round host merge, no O(S) host work.
 - ``auction="host"``: the retained twin — steps 2-3 on the planner host
   (numpy), with the merged candidate lists cached and patched in place
-  between device sweeps (step 1 on the device, the per-shard lists read
-  back). The twin is what the device tier is fuzz-checked against (exact
-  same commits from the same state).
+  between device sweeps (step 1 on the cards, each card's per-shard lists
+  read back). The twin is what the device tier is fuzz-checked against
+  (exact same commits from the same state).
 
 Task ids are **rank-keyed**: gid = rank * K + ki (``row_rank`` maps the
 resident row to its server rank; int32 on device, so rank * K must stay
@@ -53,7 +68,8 @@ re-sweep on churn.
 The auction reproduces the exact sequential greedy matching of
 :func:`adlb_tpu_torch.balancer.solve._host_greedy` — same matched
 requester set, same committed task multiset, same total score
-(``tests/test_torch_distributed.py`` at 1, 2 and 8 shards) — truncation
+(``tests/test_torch_distributed.py`` at 1, 2 and 8 shards;
+``tests/test_torch_multidevice.py`` across 2, 3 and 8 pieces) — truncation
 aside: at most ``C`` requesters per type are visible per round and ``m``
 commits per type can land per auction round, and leftovers are re-planned
 by the next balancer tick (the protocol's standing staleness contract: plan
@@ -67,6 +83,7 @@ every round.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional, Sequence
 
@@ -317,35 +334,136 @@ def build_distributed_solver(nshards: int, rounds: int = 16,
     return solve
 
 
+def _on(device: torch.device):
+    """``device`` made current for what follows, on a card (CUDA events,
+    streams and ctypes launches belong to the current card); nothing on the
+    CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _placement(devices, device) -> tuple:
+    """(shard devices, planning device) of a solver given ``devices``: all
+    of one type, the planning device of that type too and ``devices[0]``
+    when ``device`` names no card. Raises on a mixed list."""
+    devs = [torch.device(d) for d in devices]
+    kinds = sorted({d.type for d in devs})
+    if not devs or len(kinds) != 1:
+        raise ValueError(f"devices must be a non-empty list of one device "
+                         f"type, got {[str(d) for d in devs]}")
+    plan = torch.device(device)
+    if plan.type != kinds[0]:
+        raise ValueError(f"the planning device {plan} is not of the shards' "
+                         f"type {kinds[0]}")
+    check_device(kinds[0])
+    if kinds[0] == "cuda":
+        devs = [torch.device("cuda", 0 if d.index is None else d.index)
+                for d in devs]
+    return devs, (devs[0] if plan.index is None else plan)
+
+
 class _Staged:
     """A device buffer fed from a pinned host twin (on a card): numpy writes
     the host side, and each upload is one asynchronous host-to-device copy
-    of its first bytes. :meth:`wait` holds the next write until the last
-    copy has landed."""
+    of its first bytes, on its card's current stream. :meth:`wait` holds the
+    next write until the last copy has landed."""
 
     def __init__(self, nbytes: int, device: torch.device) -> None:
         cuda = device.type == "cuda"
-        self.host = torch.zeros((max(nbytes, 1),), dtype=torch.uint8,
-                                pin_memory=cuda)
-        self.dev = torch.zeros((max(nbytes, 1),), dtype=torch.uint8,
-                               device=device)
+        self.device = device
+        with _on(device):
+            self.host = torch.zeros((max(nbytes, 1),), dtype=torch.uint8,
+                                    pin_memory=cuda)
+            self.dev = torch.zeros((max(nbytes, 1),), dtype=torch.uint8,
+                                   device=device)
+            self._landed = torch.cuda.Event() if cuda else None
         self.np = self.host.numpy()
-        self._landed = torch.cuda.Event() if cuda else None
 
     def wait(self) -> None:
         if self._landed is not None:
             self._landed.synchronize()
 
     def upload(self, nbytes: int) -> None:
-        self.dev[:nbytes].copy_(self.host[:nbytes], non_blocking=True)
-        if self._landed is not None:
-            self._landed.record()
+        with _on(self.device):
+            self.dev[:nbytes].copy_(self.host[:nbytes], non_blocking=True)
+            if self._landed is not None:
+                self._landed.record()
+
+
+class _Piece:
+    """Rows [lo, lo + ns * Sl) of the resident task table, on one device:
+    ``tab`` [rows, 2K+1] int32 (prios, types, then the row's rank), its
+    views as [ns, Sl, ...] blocks (what the candidates read), the pinned
+    staging of its changed rows and, on a card, the candidates' workspace.
+    The solver keeps one piece of ``nshards`` logical shards, or one piece
+    of one shard per entry of its ``devices``."""
+
+    def __init__(self, lo: int, ns: int, Sl: int, K: int, T: int, D: int,
+                 device: torch.device) -> None:
+        self.lo, self.rows, self.K, self.device = lo, ns * Sl, K, device
+        with _on(device):
+            # every row free: priority floor, no type, rank 0 — free rows
+            # are dead, so their gids can never surface as candidates
+            tab = torch.zeros((self.rows, 2 * K + 1), dtype=torch.int32,
+                              device=device)
+            tab[:, :K] = _NEG
+            tab[:, K:2 * K] = -1
+        self.tab = tab
+        self.blocks = (tab[:, :K].reshape(ns, Sl, K),
+                       tab[:, K:2 * K].reshape(ns, Sl, K),
+                       tab[:, 2 * K].reshape(ns, Sl))
+        # a delta ships its changed rows (with their row index in the last
+        # column) in one copy, then one index_copy_ on the device
+        self.staged = _Staged(4 * self.rows * (2 * K + 2), device)
+        n = self.rows * (2 * K + 2)
+        self._np = self.staged.np.view(np.int32)[:n].reshape(self.rows,
+                                                              2 * K + 2)
+        self._dev = self.staged.dev.view(torch.int32)[:n].view(self.rows,
+                                                               2 * K + 2)
+        self.work = (_candidates.Workspace(ns, Sl, K, T, D, device)
+                     if device.type == "cuda" else None)
+        #: uploads of changed rows so far (one per ingest that changed any)
+        self.uploads = 0
+
+    def upload(self, rows, tp, tt, rk) -> None:
+        """Ship ``rows`` (indices within the piece) with their prios
+        ``tp``, types ``tt`` and ranks ``rk``: one host-to-device copy, one
+        ``index_copy_``; the rest of the piece stays where it is."""
+        n, K = rows.size, self.K
+        self.staged.wait()
+        buf = self._np
+        buf[:n, :K] = tp
+        buf[:n, K:2 * K] = tt
+        buf[:n, 2 * K] = rk
+        buf[:n, 2 * K + 1] = rows
+        self.staged.upload(4 * n * (2 * K + 2))
+        staged = self._dev[:n]
+        with _on(self.device):
+            self.tab.index_copy_(0, staged[:, 2 * K + 1].long(),
+                                 staged[:, :2 * K + 1])
+        self.uploads += 1
+
+    def candidates(self, T: int, D: int) -> torch.Tensor:
+        """The piece's per-shard candidates as one [2, ns, T, D] int32
+        tensor (prio, gid) on its device: one launch of the candidates
+        kernel on its card, or the plain version on the CPU."""
+        cp, cg = _candidates.shard_candidates(*self.blocks, T, D,
+                                              work=self.work)
+        return self.work.cands if self.work is not None else torch.stack(
+            (cp, cg))
 
 
 class DistributedAssignmentSolver:
     """Host wrapper mirroring AssignmentSolver.solve() but with the task
     table device-resident and cut into shards, updated incrementally from
     per-server snapshot deltas.
+
+    ``devices`` places shard i's rows on ``devices[i]`` (``nshards`` is then
+    ``len(devices)``; entries may repeat, all of one device type) and makes
+    ``device`` the planning device, ``devices[0]`` unless it names a card:
+    the merge, the auction and the requester tables live there. Without
+    ``devices`` the ``nshards`` shards are logical, all on ``device``.
 
     ``solve(snapshots, world)`` is the engine-compatible entry: it diffs
     the snapshots against the resident state (``ingest``) — a stamp fast
@@ -391,15 +509,25 @@ class DistributedAssignmentSolver:
         max_jobs: int = 1,
         job_weights: Optional[dict] = None,
         device: str = "cuda",
+        devices: Optional[Sequence] = None,
     ) -> None:
         if auction not in ("device", "host"):
             raise ValueError(
                 f"auction must be 'device' or 'host', got {auction!r}")
+        if devices is not None:
+            if nshards not in (1, len(devices)):
+                raise ValueError(f"nshards={nshards} but {len(devices)} "
+                                 f"devices: one shard per device")
+            nshards = len(devices)
         if nshards < 1 or servers_per_shard < 1:
             raise ValueError("nshards and servers_per_shard must be >= 1")
         if cand_width < 1:
             raise ValueError(f"cand_width must be >= 1, got {cand_width}")
-        self.device = check_device(device)
+        if devices is None:
+            self.devices = None
+            self.device = check_device(device)
+        else:
+            self.devices, self.device = _placement(devices, device)
         self.auction = auction
         self.base_types = tuple(types)
         self.base_T = max(len(self.base_types), 1)
@@ -462,20 +590,26 @@ class DistributedAssignmentSolver:
         self._seen_rgen: Optional[np.ndarray] = None
 
         # device state, allocated lazily (constructing a solver must not
-        # touch the card before first use): the resident table [S, 2K+1]
-        # int32 (prios, types, then the row's rank), its views as
-        # [nshards, Sl, ...] blocks, the pinned staging of changed rows
+        # touch a card before first use): the resident table as pieces
+        # (_Piece), one of all the logical shards or one per device; with
+        # logical shards the piece's table [S, 2K+1], its [nshards, Sl, ...]
+        # blocks and its staging are also _dev_tab, _dev_blocks and _rows.
+        # Across devices: the gathered [n, 2, T, D] lists on the planning
+        # device and the merge alone's workspace
+        self._pieces: Optional[list] = None
         self._dev_tab: Optional[torch.Tensor] = None
         self._dev_blocks: Optional[tuple] = None
         self._rows: Optional[_Staged] = None
+        self._gathered: Optional[torch.Tensor] = None
+        self._merge_work: Optional[_candidates.MergeWorkspace] = None
         # device-tier requester tables (rebuilt when reqs change):
         # compacted reqwin + lengths + initial open vector, one upload
         self._rwc: Optional[np.ndarray] = None
         self._open0: Optional[np.ndarray] = None
         self._reqbuf: Optional[_Staged] = None
         self._dev_req: Optional[tuple] = None
-        # the kernels' buffers on a card: the candidates (both tiers) and
-        # the auction (device tier)
+        # the kernels' buffers on a card: the candidates (both tiers; one per
+        # piece, _cand_work with logical shards) and the auction (device tier)
         self._cand_work: Optional[_candidates.Workspace] = None
         self._work: Optional[_auction.Workspace] = None
         # merged per-type candidate lists [T, nshards*D] (prio desc, gid
@@ -498,6 +632,9 @@ class DistributedAssignmentSolver:
         self.last_solve_ms = 0.0
         self.last_extract_ms = 0.0
         self.solve_count = 0
+        #: the last plan's committed gids per requester slot, [T, C] (-1 =
+        #: none): what the tests and chip_smoke compare across placements
+        self.last_assigned: Optional[np.ndarray] = None
 
     # ------------------------------------------------------------------
     def set_job_bias(self, job_weights: Optional[dict]) -> bool:
@@ -517,29 +654,26 @@ class DistributedAssignmentSolver:
         return True
 
     def _ensure_built(self) -> None:
-        if self._dev_tab is not None:
+        if self._pieces is not None:
             return
-        dev, S, K, T, C = self.device, self.S, self.K, self.T, self.C
+        dev, K, T, C, D = self.device, self.K, self.T, self.C, self.D
         ns, Sl = self.nshards, self._Sl
-        # the host mirror's initial state: every row free (priority
-        # floor, no type, rank 0 — free rows are dead, so their gids can
-        # never surface as candidates)
-        tab = torch.zeros((S, 2 * K + 1), dtype=torch.int32, device=dev)
-        tab[:, :K] = _NEG
-        tab[:, K:2 * K] = -1
-        self._dev_tab = tab
-        self._dev_blocks = (tab[:, :K].reshape(ns, Sl, K),
-                            tab[:, K:2 * K].reshape(ns, Sl, K),
-                            tab[:, 2 * K].reshape(ns, Sl))
-        # a delta ships its changed rows (with their row index in the
-        # last column) in one copy, then one index_copy_ on the device
-        self._rows = _Staged(4 * S * (2 * K + 2), dev)
-        self._rows_np = self._rows.np.view(np.int32)[:S * (2 * K + 2)] \
-            .reshape(S, 2 * K + 2)
-        self._rows_dev = self._rows.dev.view(torch.int32)[:S * (2 * K + 2)] \
-            .view(S, 2 * K + 2)
-        if dev.type == "cuda":
-            self._cand_work = _candidates.Workspace(ns, Sl, K, T, self.D, dev)
+        if self.devices is None:
+            piece = _Piece(0, ns, Sl, K, T, D, dev)
+            self._pieces = [piece]
+            self._dev_tab, self._dev_blocks = piece.tab, piece.blocks
+            self._rows, self._cand_work = piece.staged, piece.work
+        else:
+            self._pieces = [_Piece(i * Sl, 1, Sl, K, T, D, d)
+                            for i, d in enumerate(self.devices)]
+            if self.auction == "device":
+                with _on(dev):
+                    self._gathered = torch.empty((ns, 2, T, D),
+                                                 dtype=torch.int32,
+                                                 device=dev)
+                if dev.type == "cuda":
+                    self._merge_work = _candidates.MergeWorkspace(ns, T, D,
+                                                                  dev)
         if self.auction == "device":
             U = T * C
             self._req_bytes = 4 * T * C + 4 * T + U + 1
@@ -554,20 +688,14 @@ class DistributedAssignmentSolver:
 
     def _upload_rows(self, changed) -> None:
         """Ship the changed rows of the host mirror to the resident table:
-        one host-to-device copy of the rows and their indices, one
-        ``index_copy_``; the rest of the table stays where it is."""
+        each row to the piece that owns it, one copy and one ``index_copy_``
+        per piece with changed rows; the other pieces are not touched."""
         rows = np.unique(np.asarray(changed, dtype=np.int64))
-        n, K = rows.size, self.K
-        self._rows.wait()
-        buf = self._rows_np
-        buf[:n, :K] = self._tp[rows]
-        buf[:n, K:2 * K] = self._tt[rows]
-        buf[:n, 2 * K] = np.maximum(self._row_rank[rows], 0)
-        buf[:n, 2 * K + 1] = rows
-        self._rows.upload(4 * n * (2 * K + 2))
-        staged = self._rows_dev[:n]
-        self._dev_tab.index_copy_(0, staged[:, 2 * K + 1].long(),
-                                  staged[:, :2 * K + 1])
+        owner = rows // self._pieces[0].rows
+        for i in np.unique(owner).tolist():
+            piece, sel = self._pieces[i], rows[owner == i]
+            piece.upload(sel - piece.lo, self._tp[sel], self._tt[sel],
+                         np.maximum(self._row_rank[sel], 0))
 
     def _map_server(self, s) -> Optional[int]:
         si = self._si.get(s)
@@ -959,12 +1087,12 @@ class DistributedAssignmentSolver:
 
     def _sweep(self) -> None:
         """Full device sweep: the sharded candidate generation on the
-        device plus the ONE device->host transfer of the planning round,
-        re-materializing the merged candidate lists."""
+        devices plus the device->host transfer of the planning round (one
+        per piece), re-materializing the merged candidate lists."""
         t0 = time.perf_counter()
-        cp, cg = _candidates.shard_candidates(*self._dev_blocks, self.T,
-                                              self.D, work=self._cand_work)
-        both = torch.stack((cp, cg)).cpu().numpy()
+        both = np.concatenate(
+            [p.candidates(self.T, self.D).cpu().numpy()
+             for p in self._pieces], axis=1)
         self._gp, self._gg = _merge_shard_major(both[0], both[1])
         self._dropped_ranks.clear()  # re-materialized from live rows
         self._gg = self._gg.astype(np.int64)
@@ -985,11 +1113,25 @@ class DistributedAssignmentSolver:
         self.last_sweep_ms = (time.perf_counter() - t0) * 1e3
 
     def _device_plan(self) -> np.ndarray:
-        """The device-tier planning round: one candidates launch (every
-        shard's candidates and their merge, cut to [T, D]), one auction
-        launch (the plain versions on the CPU), one [T, C+1] readback."""
-        gp, gg = _candidates.merged_candidates(
-            *self._dev_blocks, self.T, self.D, work=self._cand_work)
+        """The device-tier planning round (the plain versions on the CPU),
+        then one [T, C+1] readback. With logical shards: one candidates
+        launch (every shard's candidates and their merge, cut to [T, D]) and
+        one auction launch. Across devices: one candidates launch on each
+        device over its shard, each device's [2, T, D] lists copied to the
+        planning device (a peer copy, ordered after the launch: the copy
+        waits for the source's current stream, the planning device's current
+        stream for the copy), one launch of the merge alone and one auction
+        launch there."""
+        if self.devices is None:
+            gp, gg = _candidates.merged_candidates(
+                *self._dev_blocks, self.T, self.D, work=self._cand_work)
+        else:
+            for i, piece in enumerate(self._pieces):
+                self._gathered[i].copy_(piece.candidates(self.T, self.D)[:, 0],
+                                        non_blocking=True)
+            gp, gg = _candidates.merge_runs(
+                self._gathered[:, 0], self._gathered[:, 1], self.D,
+                work=self._merge_work)
         rwc, lens, open0 = self._dev_req
         assigned = _auction.auction(gp, gg, rwc, lens, open0, self.rounds,
                                     self.m, work=self._work)
@@ -1020,6 +1162,7 @@ class DistributedAssignmentSolver:
                 self.rounds, self.m)
         t1 = time.perf_counter()
         self.last_solve_ms = (t1 - t0) * 1e3
+        self.last_assigned = assigned
         pairs = []
         t_idx, c_idx = np.nonzero(assigned >= 0)
         gids = assigned[t_idx, c_idx].tolist()

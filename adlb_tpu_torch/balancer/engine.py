@@ -63,6 +63,24 @@ def round_gap(min_gap: float, matches, migrations) -> float:
     return min_gap * 0.25 if (matches or migrations) else min_gap
 
 
+def shard_placement(device: str, count: int,
+                    nservers: Optional[int]) -> tuple:
+    """Where ``PlanEngine(use_mesh=True)`` puts the sharded planner's shards
+    when no ``nshards`` is asked for: one shard per card, ``(devices,
+    servers_per_shard)`` with ``devices = [cuda:0, ..., cuda:count-1]`` and
+    ``ceil(nservers / count)`` servers a shard (the JAX engine's
+    ``servers_per_device``). ``(None, 1)`` — the single-device solver — on
+    one card or on the CPU, as the JAX package plans on one chip."""
+    if torch.device(device).type != "cuda" or count < 2:
+        return None, 1
+    return ([torch.device("cuda", i) for i in range(count)],
+            _servers_per_shard(nservers, count))
+
+
+def _servers_per_shard(nservers: Optional[int], nshards: int) -> int:
+    return -(-nservers // nshards) if nservers and nservers > nshards else 1
+
+
 class PlanEngine:
     def __init__(
         self,
@@ -86,6 +104,7 @@ class PlanEngine:
         metrics=None,
         device: str = "cuda",
         nshards: Optional[int] = None,
+        devices: Optional[list] = None,
     ) -> None:
         from adlb_tpu_torch.balancer.solve import AssignmentSolver
 
@@ -110,32 +129,36 @@ class PlanEngine:
 
         self.solver = None
         if use_mesh:
-            # the sharded planner (balancer/distributed.py): the task table
-            # cut into one shard per visible device (nshards=None) or into
-            # nshards logical shards; one shard plans on the single-device
-            # solver. A construction failure propagates — degrading to the
-            # single-device solver would hide it
-            if nshards is None:
-                nshards = (torch.cuda.device_count()
-                           if torch.device(device).type == "cuda" else 1)
-            if nshards > 1:
+            # the sharded planner (balancer/distributed.py): with no nshards,
+            # the task table cut into one shard per visible card, each
+            # resident on its card, planned on cuda:0 (shard_placement; one
+            # card or the CPU plans on the single-device solver); with
+            # nshards, that many logical shards on `device`; with devices, one
+            # shard on each entry. Each card of a placement gets a CUDA
+            # context in this process. A construction or launch failure on
+            # any card propagates — degrading to the single-device solver
+            # would hide it
+            if devices is None and nshards is None:
+                devices, _ = shard_placement(
+                    device, torch.cuda.device_count()
+                    if torch.device(device).type == "cuda" else 1, nservers)
+            n = len(devices) if devices is not None else nshards or 1
+            if n > 1:
                 from adlb_tpu_torch.balancer.distributed import (
                     DistributedAssignmentSolver,
                 )
 
-                sps = 1
-                if nservers is not None and nservers > nshards:
-                    sps = -(-nservers // nshards)
                 self.solver = DistributedAssignmentSolver(
                     types=tuple(types),
                     max_tasks_per_server=max_tasks,
                     max_requesters=max_requesters,
-                    nshards=nshards,
-                    servers_per_shard=sps,
+                    nshards=n,
+                    servers_per_shard=_servers_per_shard(nservers, n),
                     auction=auction,
                     max_jobs=self.max_jobs,
                     job_weights=self._job_weights,
                     device=device,
+                    devices=devices,
                 )
         if self.solver is None:
             kw = {}

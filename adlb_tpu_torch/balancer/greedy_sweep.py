@@ -57,6 +57,8 @@ _count_lock = threading.Lock()
 _lib = None
 _lib_path = None
 _lib_lock = threading.Lock()
+#: the cards whose shared-memory limits this process has set
+_ready_on: set = set()
 #: the compiler's output (-Xptxas -v) of the build this process loaded
 build_log = ""
 
@@ -100,8 +102,18 @@ def build() -> Path:
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, restype
         _raise_on(lib.adlb_greedy_sweep_init(), "greedy sweep init", lib)
+        _ready_on.add(torch.cuda.current_device())
         _lib, _lib_path = lib, out
         return out
+
+
+def _ready(device) -> None:
+    """Build the kernel, and set its shared-memory limit on ``device`` once
+    (:func:`build` sets it on the current card)."""
+    build()
+    cuda_build.once_per_card(
+        device, _ready_on, _lib_lock,
+        lambda: _raise_on(_lib.adlb_greedy_sweep_init(), "greedy sweep init"))
 
 
 def route_launches() -> dict:
@@ -172,14 +184,17 @@ class Workspace:
     kernel comes first."""
 
     def __init__(self, nt: int, nr: int, ntypes: int, device) -> None:
-        build()
+        _ready(device)
         self.shape = (nt, nr, ntypes)
-        self.sorted = (torch.empty((nt,), dtype=torch.int32, device=device),
-                       torch.empty((nt,), dtype=torch.int64, device=device))
-        self.out = torch.empty((nr + 1,), dtype=torch.int32, device=device)
-        nbytes = _lib.adlb_greedy_sweep_scratch_bytes(nr, ntypes)
-        self.scratch = (torch.empty((nbytes,), dtype=torch.uint8,
-                                    device=device) if nbytes else None)
+        with torch.cuda.device(device):
+            self.sorted = (
+                torch.empty((nt,), dtype=torch.int32, device=device),
+                torch.empty((nt,), dtype=torch.int64, device=device))
+            self.out = torch.empty((nr + 1,), dtype=torch.int32,
+                                   device=device)
+            nbytes = _lib.adlb_greedy_sweep_scratch_bytes(nr, ntypes)
+            self.scratch = (torch.empty((nbytes,), dtype=torch.uint8,
+                                        device=device) if nbytes else None)
         self._sorted_ptrs = tuple(x.data_ptr() for x in self.sorted)
         self._out_ptrs = (self.out.data_ptr(),
                           self.scratch.data_ptr() if nbytes else None)
@@ -191,7 +206,9 @@ class Workspace:
                stream: int) -> None:
         """One launch on the sorted tasks, from the device pointers (ints)
         of the task types [NT] int32, the masks [NR, T] bool and the
-        validity [NR] bool, on the CUDA stream whose handle is ``stream``."""
+        validity [NR] bool, on the CUDA stream whose handle is ``stream``:
+        a stream of the workspace's card, with that card current (the
+        callers, :func:`solve_cuda` and the solver's hand-off, make it so)."""
         global launches
         _raise_on(_lib.adlb_greedy_sweep(
             *self._sorted_ptrs, task_type, req_mask, req_valid,

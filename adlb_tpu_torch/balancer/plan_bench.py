@@ -2,7 +2,9 @@
 
 Measures the full planning round — snapshot-delta ingest -> sharded
 solve -> plan extracted on host — of :class:`DistributedAssignmentSolver`
-with its task table cut into ``nshards`` shards on one device, at a ladder
+with its task table cut into shards, one per card with ``--ndev n`` (the
+first n cards, round-robin when fewer are visible; the JAX package's
+``--ndev`` mesh) or ``--nshards`` logical shards on one device, at a ladder
 of world sizes up to 10,000 servers / 1M parked requesters. Steady state is
 engine-faithful: every round ships task deltas for a handful of servers,
 the previous round's plan is consumed by the data plane (matched tasks
@@ -11,11 +13,14 @@ snapshots so the solver's unchanged-server fast path is exercised the way
 the engine drives it.
 
 With ``check_host=True`` a second solver on the ``auction="host"`` tier
-ingests the same snapshots every round, and each round's pair list must
-equal the measured tier's exactly.
+ingests the same snapshots every round, and each round's pair list and
+assignment array must equal the measured tier's exactly; with
+``check_logical=True`` (across cards) so must those of a solver on the same
+tier with the same number of logical shards on the planning device.
 
-    python -m adlb_tpu_torch.balancer.plan_bench [--quick] [--nshards 8]
-        [--device cuda|cpu] [--auction device|host] [--check-host]
+    python -m adlb_tpu_torch.balancer.plan_bench [--quick]
+        [--nshards 8 | --ndev 8] [--device cuda|cpu]
+        [--auction device|host] [--check-host] [--check-logical]
 """
 
 from __future__ import annotations
@@ -44,26 +49,34 @@ def _mk_reqs(rng, s, R):
 def run_sweep(scales=None, reps: int = 40, nshards: int = 8,
               rounds: int = 16, auction: str = "device",
               device: str = "cuda", check_host: bool = False,
-              on_row=None) -> dict:
-    """Returns the result dict. ``on_row(solver, row)``, when given, is
-    called with each row's measured solver after the row is done."""
+              on_row=None, devices=None, check_logical: bool = False) -> dict:
+    """Returns the result dict. ``devices`` places one shard on each entry
+    (``nshards`` is then ``len(devices)``; ``device`` plans). ``on_row(solver,
+    row)``, when given, is called with each row's measured solver after the
+    row is done."""
     from adlb_tpu_torch.balancer.distributed import (
         DistributedAssignmentSolver,
     )
 
+    if devices is not None:
+        nshards = len(devices)
     rows = []
     for S, K, R in scales or SCALES:
         rng = np.random.default_rng(S)
 
-        def make(tier):
+        def make(tier, devs=devices):
             return DistributedAssignmentSolver(
                 TYPES, K, R, nshards=nshards, rounds=rounds,
                 servers_per_shard=-(-S // nshards), auction=tier,
-                device=device,
+                device=device, devices=devs,
             )
 
         solver = make(auction)
-        twin = make("host") if check_host else None
+        twins = {}
+        if check_host:
+            twins["host_tier"] = make("host")
+        if check_logical:
+            twins["logical"] = make(auction, None)
         clock = [1.0]
 
         def stamp():
@@ -83,7 +96,7 @@ def run_sweep(scales=None, reps: int = 40, nshards: int = 8,
         t0 = time.perf_counter()
         solver.plan()
         first_plan_ms = (time.perf_counter() - t0) * 1e3
-        if twin is not None:
+        for twin in twins.values():
             twin.ingest(snaps)
             twin.plan()
 
@@ -101,7 +114,8 @@ def run_sweep(scales=None, reps: int = 40, nshards: int = 8,
                 snap["tasks"] + burst, key=lambda t: -t[2])[:K]
             snap["task_stamp"] = stamp()
 
-        lat, twin_lat, npairs, split = [], [], [], []
+        lat, npairs, split = [], [], []
+        twin_lat = {name: [] for name in twins}
         rq = [10**7]
         for it in range(reps):
             for d in range(DELTA_SERVERS):
@@ -113,15 +127,17 @@ def run_sweep(scales=None, reps: int = 40, nshards: int = 8,
             npairs.append(len(pairs))
             split.append((solver.last_ingest_ms, solver.last_solve_ms,
                           solver.last_extract_ms))
-            if twin is not None:
+            for name, twin in twins.items():
                 t0 = time.perf_counter()
                 twin.ingest(snaps)
                 twin_pairs = twin.plan()
-                twin_lat.append((time.perf_counter() - t0) * 1e3)
-                if twin_pairs != pairs:
+                twin_lat[name].append((time.perf_counter() - t0) * 1e3)
+                if twin_pairs != pairs or not np.array_equal(
+                        twin.last_assigned, solver.last_assigned):
                     raise AssertionError(
                         f"{S} servers, round {it}: the {auction} tier's "
-                        f"{len(pairs)} pairs differ from the host tier's "
+                        f"{len(pairs)} pairs or its assignment differ from "
+                        f"the {name.replace('_', ' ')}'s "
                         f"{len(twin_pairs)}")
             # the data plane consumes the plan; a served worker computes,
             # then re-parks (fresh rqseqno) — the pool stays at scale
@@ -161,6 +177,9 @@ def run_sweep(scales=None, reps: int = 40, nshards: int = 8,
             "ingest_p50_ms": float(np.median([x[0] for x in split])),
             "solve_p50_ms": float(np.median([x[1] for x in split])),
             "extract_p50_ms": float(np.median([x[2] for x in split])),
+            "ingest_p99_ms": pct([x[0] for x in split], 0.99),
+            "solve_p99_ms": pct([x[1] for x in split], 0.99),
+            "extract_p99_ms": pct([x[2] for x in split], 0.99),
             "pairs_per_round_p50": int(np.median(npairs)),
             "pairs_total": int(sum(npairs)),
             "device_sweep_ms": warm_sweep_ms,
@@ -169,11 +188,11 @@ def run_sweep(scales=None, reps: int = 40, nshards: int = 8,
             "first_plan_ms": first_plan_ms,
             "plans": solver.solve_count,
         }
-        if twin is not None:
-            row["host_tier_p50_ms"] = pct(twin_lat, 0.50)
-            row["host_tier_p99_ms"] = pct(twin_lat, 0.99)
-            row["rounds_equal_to_host_tier"] = reps
-            row["host_tier_sweeps"] = twin.sweep_count
+        for name, twin in twins.items():
+            row[f"{name}_p50_ms"] = pct(twin_lat[name], 0.50)
+            row[f"{name}_p99_ms"] = pct(twin_lat[name], 0.99)
+            row[f"rounds_equal_to_{name}"] = reps
+            row[f"{name}_sweeps"] = twin.sweep_count
         rows.append(row)
         print(
             f"plan-sweep {S:5d} servers x {R:4d} reqs "
@@ -187,6 +206,7 @@ def run_sweep(scales=None, reps: int = 40, nshards: int = 8,
     out = {
         "metric": "plan_round_latency",
         "nshards": nshards,
+        "devices": None if devices is None else [str(d) for d in devices],
         "device": device,
         "rounds": rounds,
         "auction": auction,
@@ -195,10 +215,11 @@ def run_sweep(scales=None, reps: int = 40, nshards: int = 8,
         "note": (
             "full planning round (snapshot-delta ingest -> sharded solve "
             "-> plan extracted on host) with the task table cut into "
-            "nshards shards on one device; steady state is "
+            "nshards shards, one per entry of devices (logical shards on "
+            "one device when devices is null); steady state is "
             "engine-faithful (plans consumed, stamps ride snapshots). "
             "device_sweep_ms is the host tier's full re-sweep (candidates "
-            "of every shard on the device, merge on the host), paid at "
+            "of every shard on its device, merge on the host), paid at "
             "cold start / large deltas / every RESYNC_INTERVAL plans; the "
             "device tier regenerates its candidates every plan."
         ),
@@ -375,7 +396,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="fewer reps, smallest+largest scales only")
-    ap.add_argument("--nshards", type=int, default=8)
+    ap.add_argument("--nshards", type=int, default=8,
+                    help="logical shards on one device")
+    ap.add_argument("--ndev", type=int, default=None,
+                    help="one shard per card over n cards (round-robin "
+                         "when fewer are visible; on --device cpu, n CPU "
+                         "pieces)")
     ap.add_argument("--device", default="cuda",
                     help="the solver's device: cuda (the card) or cpu")
     ap.add_argument("--auction", choices=("device", "host"),
@@ -385,6 +411,9 @@ def main(argv=None) -> int:
     ap.add_argument("--check-host", action="store_true",
                     help="run the host tier beside the measured one and "
                          "require equal pair lists every round")
+    ap.add_argument("--check-logical", action="store_true",
+                    help="with --ndev: run the same tier on as many logical "
+                         "shards beside it and require equal plans")
     ap.add_argument("--engine-rounds", action="store_true",
                     help="measure engine.round admission overhead "
                          "(host-ledger ladder) instead of the planning "
@@ -399,14 +428,24 @@ def main(argv=None) -> int:
         out = run_engine_sweep(scales=scales, reps=20 if args.quick else 40)
     else:
         scales = [SCALES[0], SCALES[2], SCALES[-1]] if args.quick else SCALES
+        devices = None
+        if args.ndev is not None:
+            from adlb_tpu_torch.graft_entry import card_placement
+
+            devices = (["cpu"] * args.ndev if args.device == "cpu"
+                       else card_placement(args.ndev))
+            print(f"plan-sweep placement: {[str(d) for d in devices]}")
         out = run_sweep(scales=scales, reps=20 if args.quick else 40,
                         nshards=args.nshards, auction=args.auction,
-                        device=args.device, check_host=args.check_host)
+                        device=args.device, check_host=args.check_host,
+                        devices=devices,
+                        check_logical=args.check_logical)
         from adlb_tpu_torch.balancer import auction, candidates
 
         # the kernels' own counts over the sweep (0 on the CPU, where the
         # plain versions run)
         out["launches"] = {"shard_candidates": candidates.launches,
+                           "merge": candidates.merge_launches,
                            "auction": auction.launches}
     print(json.dumps(out))
     return 0

@@ -209,10 +209,11 @@ class CudaHandoff:
                 np.ascontiguousarray(a, dtype=dt)).cast("B")
         stream = torch.cuda.current_stream(self.device)
         handle = stream.cuda_stream
-        greedy_sweep.copy_raw(*self.h2d, handle)
-        t1 = time.perf_counter()
-        self.work.run(self.prio, *self.inputs, handle)
-        greedy_sweep.copy_raw(*self.d2h, handle)
+        with torch.cuda.device(self.device):  # the copies and launch there
+            greedy_sweep.copy_raw(*self.h2d, handle)
+            t1 = time.perf_counter()
+            self.work.run(self.prio, *self.inputs, handle)
+            greedy_sweep.copy_raw(*self.d2h, handle)
         t2 = time.perf_counter()
         stream.synchronize()
         assign = self.out_np[:self.shape[1]].copy()

@@ -52,6 +52,19 @@
 // (the 10k-row shape: 20,000 keys, 160 KB), else in a scratch buffer in
 // device memory that the caller provides (adlb_candidates_scratch_bytes);
 // the kernel is instantiated once for each.
+//
+// The merge alone (adlb_candidates_merge) serves the device plan across
+// cards: each card runs the kernel above without `merge` over its own shard,
+// the planning card gathers the cards' [T, D] lists, and one block per type
+// merges that type's n runs by the same rank counting as step 4, keeping the
+// first D entries. It replaces the same JAX step (the all_gather and the two
+// stable sorts of _build_plan_fn, :170-179), which the JAX program runs
+// replicated on every device. Its bytes are the runs read once (n * T * D
+// pairs) and [T, D] written, a few tens of KB at the 10k row; its T blocks
+// (8 at the 10k row) each run n * D binary searches of log2(D) steps, so it
+// is latency bound. The runs' keys are staged in shared memory when they fit
+// beside the output (8 (n + 1) D bytes), else each probe reads the pair
+// from device memory.
 
 #include <cstddef>
 #include <cstdint>
@@ -330,23 +343,90 @@ bool fits_shared(int ns, int Sl, int K, int D) {
   return layout(ns, Sl, K, D, true).bytes <= (size_t)g_max_dyn;
 }
 
+// Dynamic shared memory the merge's staged variant may take (set at init).
+int g_merge_max_dyn = 0;
+
+// The first D entries of each type's merge of n runs: run q of type t is the
+// (prio, gid) pairs at cp, cg + q * card_stride + t * D, ascending by key
+// (prio desc, gid asc) and padded. One block per type; equal keys keep the
+// order of their runs (the stable merge of the runs in card order).
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads, 1)
+merge_kernel(const int* __restrict__ cp, const int* __restrict__ cg,
+             long long card_stride, int n, int D, int* __restrict__ gp,
+             int* __restrict__ gg) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* sorted = (u64*)smem;
+  u64* keys = sorted + D;  // staged variant only
+  const int tid = threadIdx.x, t = blockIdx.x, L = n * D;
+  auto key_at = [&](int q, int i) -> u64 {
+    if constexpr (kStaged) {
+      return keys[(size_t)q * D + i];
+    } else {
+      const size_t at = (size_t)q * card_stride + (size_t)t * D + i;
+      return make_key(__ldg(cp + at), __ldg(cg + at));
+    }
+  };
+  if constexpr (kStaged) {
+    for (int e = tid; e < L; e += kThreads) {
+      const int q = e / D;
+      const size_t at = (size_t)q * card_stride + (size_t)t * D + (e - q * D);
+      keys[e] = make_key(cp[at], cg[at]);
+    }
+  }
+  for (int i = tid; i < D; i += kThreads) sorted[i] = kPad;
+  __syncthreads();
+  for (int e = tid; e < L; e += kThreads) {
+    const int r = e / D;
+    int pos = e - r * D;
+    const u64 k = key_at(r, pos);
+    if (k == kPad) continue;  // padding: the output starts padded
+    for (int q = 0; q < n && pos < D; ++q) {
+      if (q == r) continue;
+      int lo = 0, hi = D - pos;  // counts past D - pos place it past D
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        const u64 v = key_at(q, mid);
+        if (q < r ? v <= k : v < k)
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      pos += lo;
+    }
+    if (pos < D) sorted[pos] = k;
+  }
+  __syncthreads();
+  for (int i = tid; i < D; i += kThreads) {
+    const u64 k = sorted[i];
+    gp[(size_t)t * D + i] = key_prio(k);
+    gg[(size_t)t * D + i] = key_gid(k);
+  }
+}
+
+size_t merge_staged_bytes(int n, int D) { return 8 * ((size_t)n + 1) * D; }
+
 }  // namespace
 
 extern "C" {
 
-// Once per process, after loading: lets both variants use all the shared
-// memory a block may have. Returns the CUDA error code.
+// Once per card, after loading, with that card current: lets every variant
+// use all the shared memory a block may have there (a function attribute is
+// kept per card; the limits read are the same on cards of one kind).
+// Returns the CUDA error code.
 int adlb_candidates_init() {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaFuncAttributes attr;
+  cudaFuncAttributes attr, mattr;
   if (err == cudaSuccess)
     err = cudaFuncGetAttributes(&attr, candidates_kernel<true>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&mattr, merge_kernel<true>);
   if (err != cudaSuccess) return (int)err;
   g_max_dyn = optin - (int)attr.sharedSizeBytes;
+  g_merge_max_dyn = optin - (int)mattr.sharedSizeBytes;
   err = cudaFuncSetAttribute(candidates_kernel<true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              g_max_dyn);
@@ -354,6 +434,10 @@ int adlb_candidates_init() {
     err = cudaFuncSetAttribute(candidates_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                g_max_dyn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(merge_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               g_merge_max_dyn);
   return (int)err;
 }
 
@@ -401,6 +485,37 @@ int adlb_candidates(const int* tp, const int* tt, const int* rk,
            (cudaStream_t)stream>>>(tp, tt, rk, tp_rs, tt_rs, rk_rs, ns, Sl, K,
                                    T, D, merge, cp, cg, gp, gg, runs, counters,
                                    scratch);
+  }
+  return (int)cudaGetLastError();
+}
+
+// 1 when a merge of n runs of D stages the runs' keys in shared memory
+// (after adlb_candidates_init).
+int adlb_candidates_merge_staged(int n, int D) {
+  return merge_staged_bytes(n, D) <= (size_t)g_merge_max_dyn;
+}
+
+// Launches the merge alone on `stream`: cp, cg int32, run q of type t at
+// q * card_stride + t * D, each run sorted by (prio desc, gid asc) and padded
+// with (-(2^31) + 1, 2^31 - 1); writes gp, gg [T, D], the first D entries of
+// each type's merge. Returns the CUDA error code of the launch; does not
+// synchronise.
+int adlb_candidates_merge(const int* cp, const int* cg, long long card_stride,
+                          int n, int T, int D, int* gp, int* gg,
+                          void* stream) {
+  if (n < 1 || T < 1 || D < 1 || D > kMaxD ||
+      (long long)n * D >= (1LL << 31) ||
+      (n > 1 && card_stride < (long long)T * D) || cp == nullptr ||
+      cg == nullptr || gp == nullptr || gg == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (adlb_candidates_merge_staged(n, D)) {
+    merge_kernel<true><<<(unsigned)T, kThreads, merge_staged_bytes(n, D),
+                         (cudaStream_t)stream>>>(cp, cg, card_stride, n, D,
+                                                 gp, gg);
+  } else {
+    merge_kernel<false><<<(unsigned)T, kThreads, 8 * (size_t)D,
+                          (cudaStream_t)stream>>>(cp, cg, card_stride, n, D,
+                                                  gp, gg);
   }
   return (int)cudaGetLastError();
 }

@@ -5,11 +5,15 @@
   of ``csrc/greedy_sweep.cu`` on the card, its plain version on the CPU) at
   the JAX entry's shape: 8 servers x 128 task slots, 32 requesters each, 4
   types, about 20% padding slots, seed 0;
-* :func:`dryrun_multichip` — the sharded planner over ``n`` logical shards
-  on one device (the JAX entry builds an ``n``-device mesh): a solve whose
-  pairs respect every requester's type mask, then an engine round that plans
-  both matches and migrations. On the card each device plan is one launch of
-  ``csrc/candidates.cu`` and one of ``csrc/auction.cu``.
+* :func:`dryrun_multichip` — the sharded planner over ``n`` shards, one per
+  card (the JAX entry builds an ``n``-device mesh): a solve whose pairs
+  respect every requester's type mask, then an engine round that plans both
+  matches and migrations. It uses the first ``n`` cards; with fewer visible
+  the shards go round-robin over them, as the JAX entry provisions virtual
+  devices (``_provision_virtual_devices``). Each device plan is one launch
+  of ``csrc/candidates.cu`` on each shard's card, the lists gathered onto
+  the first card, one launch of the merge alone and one of
+  ``csrc/auction.cu`` there. On the CPU the ``n`` shards are logical.
 
 Both run on the card unless the caller asks for ``device="cpu"``; without a
 card ``device="cuda"`` raises.
@@ -20,6 +24,7 @@ card ``device="cuda"`` raises.
 from __future__ import annotations
 
 import argparse
+import json
 
 import numpy as np
 
@@ -49,19 +54,37 @@ def entry(device: str = "cuda"):
     return greedy_sweep.greedy_assign, args
 
 
+def card_placement(n: int) -> list:
+    """The cards of ``n`` shards: the first ``n`` visible, round-robin over
+    them when fewer are visible."""
+    import torch
+
+    from adlb_tpu_torch.balancer.solve import check_device
+
+    check_device("cuda")
+    k = torch.cuda.device_count()
+    return [torch.device("cuda", i % k) for i in range(n)]
+
+
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:
-    """One sharded planning step over ``n_devices`` logical shards, with the
-    JAX entry's assertions: the solve plans pairs, every pair respects its
-    requester's type mask, and a ``PlanEngine(use_mesh=True)`` round plans
-    both matches and migrations. Returns what it planned."""
+    """One sharded planning step over ``n_devices`` shards, one per card (on
+    ``"cpu"``, logical shards), with the JAX entry's assertions: the solve
+    plans pairs, every pair respects its requester's type mask, and a
+    ``PlanEngine(use_mesh=True)`` round over the same placement plans both
+    matches and migrations. Returns what it planned, the cards visible and
+    the placement (None for logical shards)."""
+    import torch
+
     from adlb_tpu_torch.balancer.distributed import (
         DistributedAssignmentSolver)
     from adlb_tpu_torch.balancer.engine import PlanEngine
 
+    placement = (card_placement(n_devices)
+                 if torch.device(device).type == "cuda" else None)
     types = (1, 2)
     solver = DistributedAssignmentSolver(
         types=types, max_tasks_per_server=8, max_requesters=4,
-        nshards=n_devices, device=device)
+        nshards=n_devices, device=device, devices=placement)
     # tiny but non-trivial state: one task and one requester per server
     snapshots = {}
     for s in range(n_devices):
@@ -82,7 +105,8 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:
     # through the engine over the same shards
     engine = PlanEngine(
         types=types, max_tasks=8, max_requesters=4, use_mesh=True,
-        nshards=n_devices, nservers=n_devices, device=device)
+        nshards=n_devices, nservers=n_devices, device=device,
+        devices=placement)
     assert isinstance(engine.solver, DistributedAssignmentSolver)
     # One hot server holds the whole backlog; two remote servers have
     # parked requesters (demand-driven matches) and the rest are consumers
@@ -100,23 +124,31 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:
     assert migrations, "engine round planned no migrations"
     return {"pairs": len(pairs), "matches": len(matches),
             "migrations": len(migrations),
-            "device_plans": solver.solve_count + engine.solver.solve_count}
+            "device_plans": solver.solve_count + engine.solver.solve_count,
+            "cards_visible": torch.cuda.device_count(),
+            "placement": (None if placement is None
+                          else [str(d) for d in placement])}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card, the default) or cpu")
-    ap.add_argument("--n", type=int, default=8, help="logical shards")
+    ap.add_argument("--n", type=int, default=8,
+                    help="shards (one per card, logical on the CPU)")
     args = ap.parse_args(argv)
     fn, fargs = entry(args.device)
     out = fn(*fargs)
     print(f"entry() solve: {tuple(out.shape)} assignments: "
           f"{int((out >= 0).sum())}")
     got = dryrun_multichip(args.n, args.device)
-    print(f"dryrun_multichip: {args.n} logical shards on {args.device}, "
-          f"{got['pairs']} plan entries, types respected; engine round: "
-          f"{got['matches']} matches, {got['migrations']} migrations")
+    where = (f"{args.n} logical shards on {args.device}"
+             if got["placement"] is None else
+             f"{args.n} shards over {got['cards_visible']} visible cards "
+             f"{json.dumps({k: got[k] for k in ('cards_visible', 'placement')})}")
+    print(f"dryrun_multichip: {where}, {got['pairs']} plan entries, types "
+          f"respected; engine round: {got['matches']} matches, "
+          f"{got['migrations']} migrations")
     return 0
 
 

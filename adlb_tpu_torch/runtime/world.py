@@ -286,17 +286,20 @@ class Config:
     # default. Set very high when the balancer host has no local
     # accelerator (e.g. a CPU-only sidecar).
     solver_host_threshold: "Optional[int]" = None
-    # "auto" = when more than one device is visible, cut the balancer's
-    # task table into one shard per device (balancer/distributed.py); on
-    # one card (or device="cpu") the single-device solver plans, as the
-    # JAX package does on one chip; "off" = single-device solve
+    # "auto" = when more than one card is visible, cut the balancer's task
+    # table into one shard per card, each resident on its card
+    # (balancer/distributed.py; the planning process opens a CUDA context
+    # on every card); on one card (or device="cpu") the single-device
+    # solver plans, as the JAX package does on one chip; "off" =
+    # single-device solve
     balancer_mesh: str = "off"
     # auction tier of the sharded solver (balancer/distributed.py):
-    # "device" runs candidates + merge + auction rounds on the device, the
-    # rounds as one launch of the auction kernel (no per-round host
-    # merge); "host" is the retained reference twin the device tier is
-    # fuzz-proven exactly equal to. Only consulted when the sharded
-    # solver is active (balancer_mesh="auto" with more than one device)
+    # "device" runs each card's candidates on that card and the merge and
+    # the auction rounds on cuda:0, the rounds as one launch of the auction
+    # kernel (no per-round host merge); "host" is the retained reference
+    # twin the device tier is fuzz-proven exactly equal to. Only consulted
+    # when the sharded solver is active (balancer_mesh="auto" with more
+    # than one card)
     balancer_auction: str = "device"
     # host tier of the plan engine (balancer/ledger.py): "array" keeps
     # parked requesters / snapshot tasks resident in numpy columns so

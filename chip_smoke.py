@@ -48,8 +48,7 @@ no result). Phases:
    host tier's from the same snapshots, one candidates launch and one
    auction launch per device plan (and one candidates launch per host-tier
    sweep); a few ``PlanEngine(use_mesh=True, nshards=8)`` rounds through
-   the ledger's view path, both tiers equal; ``dryrun_multichip(8)``
-   (``adlb_tpu_torch/graft_entry.py``); then, on the 10k row's final
+   the ledger's view path, both tiers equal; then, on the 10k row's final
    state, both kernels against their plain versions and numpy twins, a
    ``_device_plan`` counted at two launches, and the device plan timed:
    each launch alone (medians of CUDA-event windows, and the device time
@@ -116,7 +115,24 @@ no result). Phases:
     65536x8192 (10 and 50) in CUDA graphs, and ``plan_round_bench``'s
     subprocess; the planned rows pass ``check_planned``, the first and
     the last kernel output of every timed window equal ``_host_greedy``,
-    and the plan round launches kernel A.
+    and the plan round launches kernel A;
+17. the sharded planner with its task table split across the cards, one
+    shard per card (``DistributedAssignmentSolver(devices=...)``): the
+    card count, peer access to card 0 and the placement printed; the merge
+    alone (``csrc/candidates.cu``'s second kernel) bit-equal to its plain
+    version and the numpy twin on fuzzed runs (n 1 to 8 cards, short and
+    padded runs, ties in prio, D up to the kernel's largest, keys in shared
+    and in device memory); ``plan_bench``'s 10k row over min(8, cards)
+    shards (8 on cuda:0 when one card is visible), 40 rounds, every
+    round's assignment and pair list equal to the one-card solver's on as
+    many logical shards and to the host tier's across the same cards, kernel A
+    launched on each card, the merge alone and the auction once per device
+    plan; the round split (p50 / p99), each card's kernel A, the gather,
+    the merge and the auction in CUDA events on their cards; then
+    ``dryrun_multichip(8)`` (``adlb_tpu_torch/graft_entry.py``) over the
+    card placement, its engine round planning matches and migrations.
+    ``python3 chip_smoke.py --phase 17`` builds the kernels and runs this
+    phase alone (a machine with several cards).
 
 Each phase's wall time is printed.
 
@@ -573,6 +589,266 @@ class PlannerTimer:
                     f"ms, max {1e3 * max(self.solve_s):.3f} ms each; median "
                     f"split: {split_text(self.splits)}")
         return out
+
+
+#: phase 17's fuzz cases of the merge alone: (n runs, T, D, share of each
+#: run that is live), D up to the kernel's largest
+MERGE_CASES = ((1, 8, 545, 0.6), (2, 8, 545, 0.3), (3, 8, 545, 1.0),
+               (8, 8, 545, 0.5), (8, 8, 545, 0.02), (2, 1, 1, 1.0),
+               (3, 24, 13, 0.5), (8, 64, 33, 0.9), (3, 8, 4096, 0.7),
+               (8, 8, 4096, 0.8))
+
+
+def merge_instance(rng, n, T, D, live, device="cuda"):
+    """n runs [n, T, D] of (prio, gid) pairs as kernel A leaves them: each
+    sorted by (prio desc, gid asc), a random share of it live and the rest
+    padding, prios from a narrow range (many ties, broken by gid) and some
+    pairs held by two runs. Returns numpy (cp, cg) and the (cp, cg) views
+    of one gathered [n, 2, T, D] buffer on ``device``."""
+    import torch
+
+    p = rng.integers(-4, 4, (n, T, D)).astype(np.int64)
+    g = rng.integers(0, 4 * n * D, (n, T, D)).astype(np.int64)
+    dup = rng.random((n, T, D)) < 0.05
+    dup[0] = False
+    p[dup], g[dup] = np.broadcast_to(p[0], p.shape)[dup], \
+        np.broadcast_to(g[0], g.shape)[dup]
+    nlive = (rng.random((n, T)) * live * (D + 1)).astype(np.int64)
+    dead = np.arange(D)[None, None, :] >= nlive[:, :, None]
+    p[dead], g[dead] = NEG, 2**31 - 1
+    order = np.argsort(((-p) << 32) + g, axis=2, kind="stable")
+    cp = np.take_along_axis(p, order, 2).astype(np.int32)
+    cg = np.take_along_axis(g, order, 2).astype(np.int32)
+    buf = torch.from_numpy(np.stack([cp, cg], axis=1)).to(device)
+    return (cp, cg), (buf[:, 0], buf[:, 1])
+
+
+def check_merge(candidates, report) -> int:
+    """Phase 17: the merge alone against its plain version and the numpy
+    twin ``_merge_shard_major`` cut to D on every case, launched twice
+    into one workspace. Exact equality. Returns the largest absolute
+    difference seen."""
+    import torch
+
+    from adlb_tpu_torch.balancer import distributed as dist
+
+    err = 0
+    for i, (n, T, D, live) in enumerate(MERGE_CASES):
+        (cp, cg), (dp, dg) = merge_instance(np.random.default_rng(1700 + i),
+                                            n, T, D, live)
+        want = [x[:, :D] for x in dist._merge_shard_major(cp, cg)]
+        plain = candidates.merge_runs_torch(dp, dg, D)
+        work = candidates.MergeWorkspace(n, T, D, dp.device)
+        for _ in range(2):
+            got = [x.clone() for x in work.launch(dp, dg)]
+            torch.cuda.synchronize()
+            for g, p, w in zip(got, plain, want):
+                err = max(err, int((g.long() - p.long()).abs().max()))
+                if not (torch.equal(g, p)
+                        and np.array_equal(g.cpu().numpy(), w)):
+                    raise AssertionError(f"the merge alone disagrees on "
+                                         f"n={n} T={T} D={D}")
+        report(f"phase 17: merge alone n={n} T={T} D={D} (live share "
+               f"{live}): kernel == plain == numpy twin, twice; keys in "
+               f"{'shared memory' if work.staged else 'device memory'}")
+    return err
+
+
+def time_across_cards(solver, candidates) -> dict:
+    """On a device-tier solver split across cards: each card's kernel-A
+    launch (median of CUDA-event windows on that card's current stream),
+    the gather (events on the planning card's stream around the copies,
+    after the launches finished), the merge alone and the auction (events
+    on the planning card), the whole device plan without its readback
+    (events on the planning card from before the first launch to after the
+    auction: its stream waits for every card's copy), the same with its
+    readback on the host clock, the merge alone's plain version and its
+    bytes bound. Every card is warmed up first. Its launches count as any
+    other: call it after the counts were read."""
+    import torch
+
+    T, D = solver.T, solver.D
+    plan = solver.device
+    rwc, lens, open0 = solver._dev_req
+    g = solver._gathered
+    mw, aw = solver._merge_work, solver._work
+
+    def gather():
+        for i, piece in enumerate(solver._pieces):
+            g[i].copy_(piece.work.cands[:, 0], non_blocking=True)
+
+    def device_plan():
+        for piece in solver._pieces:
+            piece.work.launch(*piece.blocks, False)
+        gather()
+        mw.launch(g[:, 0], g[:, 1])
+        aw.launch(mw.gp, mw.gg, rwc, lens, open0, solver.rounds)
+
+    for _ in range(3):
+        device_plan()
+    for d in set(solver.devices) | {plan}:
+        torch.cuda.synchronize(d)
+    out = {"kernel_a_ms": []}
+    for piece in solver._pieces:
+        with torch.cuda.device(piece.device):
+            out["kernel_a_ms"].append(time_ms(
+                lambda: piece.work.launch(*piece.blocks, False), reps=50))
+    with torch.cuda.device(plan):
+        out["gather_ms"] = time_ms(gather, reps=50)
+        out["merge_ms"] = time_ms(lambda: mw.launch(g[:, 0], g[:, 1]),
+                                  reps=50)
+        out["merge_ms_back_to_back"] = back_to_back_ms(
+            lambda: mw.launch(g[:, 0], g[:, 1]), reps=200)
+        out["auction_ms"] = time_ms(lambda: aw.launch(
+            mw.gp, mw.gg, rwc, lens, open0, solver.rounds), reps=50)
+        out["device_plan_ms"] = time_ms(device_plan, reps=50)
+        out["merge_plain_ms"] = time_ms(
+            lambda: candidates.merge_runs_torch(g[:, 0], g[:, 1], D), reps=50)
+    host = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        solver._device_plan()
+        host.append(time.perf_counter() - t0)
+    out["device_plan_host_clock_ms"] = 1e3 * statistics.median(host[1:])
+    n = len(solver._pieces)
+    # the runs read once, [T, D] written once: (n + 1) T D pairs of int32
+    out["merge_bound_ms"] = (n + 1) * T * D * 8 / HBM_BYTES_PER_S * 1e3
+    out["merge_staged"] = mw.staged
+    return out
+
+
+def run_across_cards(report, device="cuda", reps=40, scale=None,
+                     nmax=8) -> dict:
+    """Phase 17: the sharded planner with its task table split across the
+    cards, one shard per card: plan_bench's 10k row (or ``scale``) over
+    min(nmax, cards) shards, ``reps`` steady rounds, every round's
+    assignment and pair list equal to the one-card solver's on as many
+    logical shards and to the host tier's across the same cards; kernel A
+    launched on each card, the merge alone and the auction once per device
+    plan, counted; the round split, the per-card and planning-card kernel
+    times; then ``dryrun_multichip(8)`` over the card placement (its engine
+    round plans matches and migrations). On a one-card machine the shards
+    all go to cuda:0 through the same code, their copies same-card copies.
+    ``device="cpu"`` rehearses it at a small ``scale`` over CPU pieces,
+    where nothing launches. Returns what the kernel line needs."""
+    import torch
+
+    from adlb_tpu_torch import graft_entry
+    from adlb_tpu_torch.balancer import auction, candidates, plan_bench
+
+    on_card = device == "cuda"
+    scale = scale or plan_bench.SCALES[3]
+    if on_card:
+        cards = torch.cuda.device_count()
+        placement = graft_entry.card_placement(min(nmax, cards)
+                                               if cards > 1 else nmax)
+        peers = {i: torch.cuda.can_device_access_peer(i, 0)
+                 for i in range(cards)}
+        report(f"phase 17: torch.cuda.device_count() = {cards}; "
+               f"torch.cuda.can_device_access_peer(i, 0): {peers}")
+        if cards == 1:
+            report(f"phase 17: one card visible: the {nmax} shards all go "
+                   f"to cuda:0 through the per-card code path, so every "
+                   f"gather copy is a same-card copy; the cross-card copies "
+                   f"stay unverified on this machine")
+    else:
+        cards, peers, placement = 0, {}, [torch.device("cpu")] * nmax
+    n = len(placement)
+    report(f"phase 17: placement of {n} shards: "
+           f"{[str(d) for d in placement]}")
+    kept = {}
+    candidates.launches = candidates.merge_launches = auction.launches = 0
+    t0 = time.perf_counter()
+    plan_bench.run_sweep(
+        scales=[scale], reps=reps, devices=placement, device=device,
+        check_host=True, check_logical=True,
+        on_row=lambda s, r: kept.update(solver=s, row=r))
+    wall = time.perf_counter() - t0
+    counts = {"kernel_a": candidates.launches,
+              "merge": candidates.merge_launches,
+              "auction": auction.launches}
+    sol, row = kept["solver"], kept["row"]
+    # the measured solver's device plans, its n-launch warm sweep, the
+    # logical twin's one launch of each kernel a plan (it planned the same
+    # rounds) and the host twin's n launches a sweep
+    plans, sweeps = sol.solve_count, row["host_tier_sweeps"]
+    want = {"kernel_a": on_card * (n * plans + n + plans + n * sweeps),
+            "merge": on_card * plans,
+            "auction": on_card * 2 * plans}
+    if counts != want or not plans:
+        raise AssertionError(f"phase 17: launches {counts}, want {want} "
+                             f"({plans} device plans, {sweeps} host-tier "
+                             f"sweeps of {n} pieces)")
+    for piece, d in zip(sol._pieces, placement):
+        if piece.tab.device != d or piece.rows != sol._Sl:
+            raise AssertionError(f"phase 17: a piece of {piece.rows} rows "
+                                 f"on {piece.tab.device}, not {sol._Sl} on "
+                                 f"{d}")
+    before = (candidates.launches, candidates.merge_launches,
+              auction.launches)
+    sol._device_plan()
+    per_plan = tuple(a - b for a, b in zip(
+        (candidates.launches, candidates.merge_launches, auction.launches),
+        before))
+    if per_plan != (on_card * n, on_card * 1, on_card * 1):
+        raise AssertionError(f"phase 17: one device plan launched "
+                             f"{per_plan} (kernel A, merge, auction)")
+    report(f"phase 17: plan_bench {row['servers']} servers x {row['R']} "
+           f"parked ({row['parked_reqs']} requesters, "
+           f"{row['servers'] * row['K']} task slots), {n} shards of "
+           f"{sol._Sl} rows over {len(set(placement))} devices, {reps} "
+           f"rounds in {wall:.1f} s: plan round p50 "
+           f"{row['plan_round_p50_ms']:.3f} ms, p99 "
+           f"{row['plan_round_p99_ms']:.3f} ms (host clock; split p50 / p99: "
+           f"ingest {row['ingest_p50_ms']:.3f} / {row['ingest_p99_ms']:.3f} "
+           f"ms, plan {row['solve_p50_ms']:.3f} / {row['solve_p99_ms']:.3f} "
+           f"ms, extract {row['extract_p50_ms']:.3f} / "
+           f"{row['extract_p99_ms']:.3f} ms); pairs per round "
+           f"{row['pairs_per_round_p50']} (p50), {row['pairs_total']} in all; "
+           f"every round's assignment and pairs == the one-card solver on "
+           f"{n} logical shards (p50 {row['logical_p50_ms']:.3f} ms) == the "
+           f"host tier across the same devices (p50 "
+           f"{row['host_tier_p50_ms']:.3f} ms); launches {counts}; per "
+           f"device plan: kernel A {per_plan[0]}, merge {per_plan[1]}, "
+           f"auction {per_plan[2]}")
+    timed = time_across_cards(sol, candidates) if on_card else {}
+    if timed:
+        report(f"phase 17: device plan across {n} shards: "
+               f"{timed['device_plan_ms']:.4f} ms per call (CUDA events on "
+               f"the planning card, no readback), "
+               f"{timed['device_plan_host_clock_ms']:.3f} ms with its "
+               f"readback on the host clock; kernel A per shard "
+               f"{[round(x, 4) for x in timed['kernel_a_ms']]} ms (events on "
+               f"each card's stream); gather {timed['gather_ms']:.4f} ms; "
+               f"merge alone {timed['merge_ms']:.4f} ms (back to back "
+               f"{timed['merge_ms_back_to_back']:.4f}; bound "
+               f"{timed['merge_bound_ms']:.6f} ms, bytes; plain "
+               f"{timed['merge_plain_ms']:.4f} ms); auction "
+               f"{timed['auction_ms']:.4f} ms")
+    before = (candidates.launches, candidates.merge_launches,
+              auction.launches)
+    dry = graft_entry.dryrun_multichip(8, device=device)
+    dry_launches = tuple(a - b for a, b in zip(
+        (candidates.launches, candidates.merge_launches, auction.launches),
+        before))
+    per = len(dry["placement"]) if dry["placement"] else 1
+    if dry_launches != (on_card * per * dry["device_plans"],
+                        on_card * (dry["placement"] is not None)
+                        * dry["device_plans"],
+                        on_card * dry["device_plans"]):
+        raise AssertionError(f"dryrun_multichip(8): {dry_launches} (kernel "
+                             f"A, merge, auction) launches for "
+                             f"{dry['device_plans']} device plans")
+    report(f"phase 17: dryrun_multichip(8) on {device}: "
+           f"{json.dumps({k: dry[k] for k in ('cards_visible', 'placement')})}"
+           f"; {dry['pairs']} plan entries, types respected; engine round "
+           f"{dry['matches']} matches, {dry['migrations']} migrations; "
+           f"{dry['device_plans']} device plans = {dry_launches} (kernel A, "
+           f"merge, auction) launches")
+    return {"cards": cards, "peer_access": peers,
+            "placement": [str(d) for d in placement], "counts": counts,
+            "per_device_plan": per_plan, "row": row, "timed": timed,
+            "dryrun": dry, "wall_s": wall}
 
 
 def keep_solves(every: int = CHECK_EVERY) -> None:
@@ -1076,11 +1352,10 @@ def run_sharded_planner(auction, report, reps=40, device="cuda",
     40 rounds, both tiers from the same snapshots every round, then
     PlanEngine rounds through the view path (``device``, ``reps`` and
     ``scales`` only shrink it for a rehearsal on the CPU, where nothing
-    launches), and ``dryrun_multichip(8)`` (``adlb_tpu_torch/graft_entry.py``).
-    Every device plan is one candidates launch and one auction launch; every
-    host-tier sweep one candidates launch. Returns ({kernel: launches},
+    launches); ``dryrun_multichip(8)``, which spans the cards, runs in phase
+    17. Every device plan is one candidates launch and one auction launch;
+    every host-tier sweep one candidates launch. Returns ({kernel: launches},
     device plans, the last row's solver, plan_bench's result)."""
-    from adlb_tpu_torch import graft_entry
     from adlb_tpu_torch.balancer import candidates, plan_bench
     from adlb_tpu_torch.balancer.distributed import (
         DistributedAssignmentSolver)
@@ -1175,19 +1450,6 @@ def run_sharded_planner(auction, report, reps=40, device="cuda",
                              f"kernel per device plan: auction {launches}, "
                              f"candidates {cand_launches}, plans {plans}, "
                              f"sweeps {sweeps}")
-    before = candidates.launches, auction.launches
-    dry = graft_entry.dryrun_multichip(8, device=device)
-    dry_launches = (candidates.launches - before[0],
-                    auction.launches - before[1])
-    if dry_launches != (on_card * dry["device_plans"],) * 2:
-        raise AssertionError(f"dryrun_multichip(8): {dry_launches} "
-                             f"(candidates, auction) launches for "
-                             f"{dry['device_plans']} device plans")
-    report(f"phase 5: dryrun_multichip(8) on {device}: {dry['pairs']} plan "
-           f"entries, types respected; engine round {dry['matches']} "
-           f"matches, {dry['migrations']} migrations; "
-           f"{dry['device_plans']} device plans = {dry_launches[0]} "
-           f"candidates + {dry_launches[1]} auction launches")
     counts = {"auction": auction.launches,
               "shard_candidates": candidates.launches}
     return counts, sum(plans), kept[scales[-1][0]], out
@@ -2408,9 +2670,61 @@ def run_bench_rows(report, device="cuda",
     return totals
 
 
-def main() -> int:
+def merge_line(out17: dict, err: int) -> dict:
+    """The merge alone's entry of the kernels line, from phase 17."""
+    timed = out17["timed"]
+    return {
+        "name": "candidates_merge",
+        "route": "cuda",
+        "source": "adlb_tpu_torch/csrc/candidates.cu",
+        "replaces": "adlb_tpu/balancer/distributed.py:170",
+        "launches": out17["counts"]["merge"],
+        "max_abs_err": err,
+        "ms": timed["merge_ms"],
+        "ms_back_to_back": timed["merge_ms_back_to_back"],
+        "plain_ms": timed["merge_plain_ms"],
+        "bound_ms": timed["merge_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "keys_in_shared_memory": timed["merge_staged"],
+        "across_cards_17": {k: v for k, v in out17.items()
+                            if k not in ("row", "dryrun")},
+        "plan_round_17": {k: out17["row"][k] for k in (
+            "plan_round_p50_ms", "plan_round_p99_ms", "ingest_p50_ms",
+            "ingest_p99_ms", "solve_p50_ms", "solve_p99_ms",
+            "extract_p50_ms", "extract_p99_ms", "logical_p50_ms",
+            "host_tier_p50_ms", "pairs_total")},
+    }
+
+
+def main_across_cards(report) -> dict:
+    """``--phase 17``: build the three kernels and run phase 17 alone;
+    returns its kernel line entry."""
+    from adlb_tpu_torch.balancer import auction, candidates, cuda_build
+    from adlb_tpu_torch.balancer import greedy_sweep as gs
+
+    t0 = time.perf_counter()
+    cuda_build.build_all([gs.SOURCE, candidates.SOURCE, auction.SOURCE])
+    built = [gs.build(), candidates.build(), auction.build()]
+    report(f"phase 1: built {', '.join(so.name for so in built)} in "
+           f"{time.perf_counter() - t0:.2f} s")
+    for ln in candidates.build_log.splitlines():
+        if "ptxas" in ln:
+            report(f"phase 1: {ln.strip()}")
+    t0 = time.perf_counter()
+    err = check_merge(candidates, report)
+    out17 = run_across_cards(report)
+    report(f"phase 17: wall {time.perf_counter() - t0:.1f} s")
+    return merge_line(out17, err)
+
+
+def main(argv=None) -> int:
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--phase", "17"]):
+        print("usage: python3 chip_smoke.py [--phase 17]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2423,6 +2737,13 @@ def main() -> int:
 
     def report(line: str) -> None:
         print(f"[{label}] {line}", flush=True)
+
+    if argv:
+        print(json.dumps({"kernels": [main_across_cards(report)]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     laps = [time.perf_counter()]
     phase_walls = {}
@@ -2558,6 +2879,9 @@ def main() -> int:
     lap("15")
     counts16 = run_bench_rows(report)
     lap("16")
+    merge_err = check_merge(candidates, report)
+    out17 = run_across_cards(report)
+    lap("17")
     report(f"all phases: {laps[-1] - laps[0]:.1f} s")
 
     leaked = [m for m in sys.modules
@@ -2629,7 +2953,10 @@ def main() -> int:
         "launches": planner_launches["shard_candidates"],
         "launches_by_phase": {
             "5_sharded_planner": planner_launches["shard_candidates"],
-            "16_plan_round_bench": counts16["kernel_a_launches"]},
+            "16_plan_round_bench": counts16["kernel_a_launches"],
+            "17_across_cards": out17["counts"]["kernel_a"]},
+        "launches_per_device_plan_17": out17["per_device_plan"][0],
+        "ms_per_shard_17": out17["timed"]["kernel_a_ms"],
         "max_abs_err": cand_err,
         "ms": timed10k["candidates_ms"],
         "ms_back_to_back": timed10k["candidates_ms_back_to_back"],
@@ -2656,8 +2983,12 @@ def main() -> int:
         "chain_bound_ms": timed10k["chain_bound_ms"],
         "library_ms": None,
         "device_plan_ms": timed10k["device_plan_ms"],
+        "launches_by_phase": {
+            "5_sharded_planner": planner_launches["auction"],
+            "17_across_cards": out17["counts"]["auction"]},
+        "ms_17": out17["timed"]["auction_ms"],
         "at_10k_row": timed10k,
-    }]}))
+    }, merge_line(out17, merge_err)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,7 +17,12 @@ to the plain version and to a numpy twin on fuzzed instances (truncated
 types, empty types, repeated ranks, one row per shard, 16 shards, keys past
 shared memory), laid out as the solver's strided table; a device plan is
 one candidates launch and one auction launch; a refused launch raises.
-The graft entry (``graft_entry``) runs on the card.
+The merge alone bit-equal to its plain version and numpy twin; the sharded
+planner split across the cards (one shard per card, or 8 on cuda:0 when
+one is visible) at the 10k row equal to the one-card logical shards and the
+host tier, a planner whose planning card is cuda:1 (two cards), and
+``PlanEngine(use_mesh=True)`` with one shard per card. The graft entry
+(``graft_entry``) runs on the card, its dry run over the card placement.
 
 Process worlds and the native plane: ``spawn_world(start_method="fork")``
 with a master that plans on the card raises before any process starts; a
@@ -406,10 +411,132 @@ def test_graft_entry_runs_on_the_card(card):
     out = fn(*args)
     np.testing.assert_array_equal(
         out.cpu().numpy(), fn(*(a.cpu() for a in args)).numpy())
-    before = candidates.launches, auction.launches
+    before = (candidates.launches, candidates.merge_launches,
+              auction.launches)
     got = graft_entry.dryrun_multichip(8)
+    n = min(8, torch.cuda.device_count())
+    assert got["placement"] == [f"cuda:{i % n}" for i in range(8)]
+    plans = got["device_plans"]
     assert (candidates.launches - before[0],
-            auction.launches - before[1]) == (got["device_plans"],) * 2
+            candidates.merge_launches - before[1],
+            auction.launches - before[2]) == (8 * plans, plans, plans)
+
+
+def _sorted_runs(rng, n, T, D, live):
+    """n runs [n, T, D] as kernel A leaves them: sorted by (prio desc, gid
+    asc), a random share live, the rest padded; many prio ties."""
+    p = rng.integers(-4, 4, (n, T, D)).astype(np.int64)
+    g = rng.integers(0, 4 * n * D, (n, T, D)).astype(np.int64)
+    nlive = (rng.random((n, T)) * live * (D + 1)).astype(np.int64)
+    dead = np.arange(D)[None, None, :] >= nlive[:, :, None]
+    p[dead], g[dead] = int(_NEG), 2**31 - 1
+    o = np.argsort(((-p) << 32) + g, axis=2, kind="stable")
+    return (np.take_along_axis(p, o, 2).astype(np.int32),
+            np.take_along_axis(g, o, 2).astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,T,D,live", [
+    (1, 8, 545, 0.6), (2, 8, 545, 0.3), (3, 24, 13, 0.5), (8, 8, 545, 0.5),
+    (3, 8, 4096, 0.7), (8, 8, 4096, 0.8)])
+def test_merge_alone_matches_plain_and_numpy(card, n, T, D, live):
+    """The merge alone on a gathered [n, 2, T, D] buffer: bit-equal to its
+    plain version and to ``_merge_shard_major`` cut to D, twice; keys in
+    shared memory, or in device memory past it (8 runs of 4096)."""
+    cp, cg = _sorted_runs(np.random.default_rng(n * 100 + D), n, T, D, live)
+    buf = torch.from_numpy(np.stack([cp, cg], axis=1)).to(card)
+    want = [x[:, :D] for x in dist._merge_shard_major(cp, cg)]
+    plain = candidates.merge_runs_torch(buf[:, 0], buf[:, 1], D)
+    work = candidates.MergeWorkspace(n, T, D, card)
+    assert work.staged == (8 * (n + 1) * D <= 227 * 1024)
+    for _ in range(2):
+        before = candidates.merge_launches
+        got = candidates.merge_runs(buf[:, 0], buf[:, 1], D, work=work)
+        torch.cuda.synchronize()
+        assert candidates.merge_launches == before + 1
+        for g, p_, w in zip(got, plain, want):
+            assert torch.equal(g, p_)
+            np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+def _card_placement():
+    cards = torch.cuda.device_count()
+    return graft_entry.card_placement(min(8, cards) if cards > 1 else 8)
+
+
+@pytest.mark.cuda
+def test_sharded_planner_across_cards_at_the_10k_row(card):
+    """The 10k row over one shard per card (8 on cuda:0 with one card):
+    every round's assignment and pairs equal the one-card solver's on as
+    many logical shards and the host tier's across the same cards; each
+    piece lives on its card; a device plan is one kernel-A launch a shard,
+    one merge and one auction."""
+    placement = _card_placement()
+    kept = []
+    out = plan_bench.run_sweep(scales=plan_bench.SCALES[3:], reps=4,
+                               devices=placement, device="cuda",
+                               check_host=True, check_logical=True,
+                               on_row=lambda s, r: kept.append(s))
+    row = out["rows"][0]
+    assert row["rounds_equal_to_host_tier"] == 4
+    assert row["rounds_equal_to_logical"] == 4 and row["pairs_total"] > 0
+    sol = kept[0]
+    assert [p.tab.device for p in sol._pieces] == placement
+    assert all(p.rows == 10_000 // len(placement) for p in sol._pieces)
+    before = (candidates.launches, candidates.merge_launches,
+              auction.launches)
+    sol._device_plan()
+    assert (candidates.launches - before[0],
+            candidates.merge_launches - before[1],
+            auction.launches - before[2]) == (len(placement), 1, 1)
+
+
+@pytest.mark.cuda
+def test_a_planner_on_a_second_card_launches_there(card):
+    """Two cards: a solver whose planning card is cuda:1, its shards on
+    cuda:1 and cuda:0, plans what the CPU pieces plan; every launch ran
+    (on cuda:1 while cuda:0 stayed current)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    rng = np.random.default_rng(3)
+    snaps = {}
+    for s in range(100, 112):
+        tasks = sorted(((s * 10 + i, int(rng.integers(1, 3)),
+                         int(rng.integers(-9, 9)), 8) for i in range(4)),
+                       key=lambda t: -t[2])
+        snaps[s] = {"tasks": tasks,
+                    "reqs": [(s, 1, [int(rng.integers(1, 3))])]}
+    kw = dict(types=(1, 2), max_tasks_per_server=8, max_requesters=2,
+              servers_per_shard=6)
+    want = dist.DistributedAssignmentSolver(
+        devices=["cpu", "cpu"], device="cpu", **kw).solve(snaps, None)
+    sol = dist.DistributedAssignmentSolver(devices=["cuda:1", "cuda:0"],
+                                           device="cuda:1", **kw)
+    assert torch.cuda.current_device() == 0
+    before = candidates.launches, auction.launches
+    assert sol.solve(snaps, None) == want and want
+    assert sol._work.out.device == torch.device("cuda", 1)
+    assert sol._pieces[0].tab.device == torch.device("cuda", 1)
+    assert (candidates.launches - before[0],
+            auction.launches - before[1]) == (2, 1)
+
+
+@pytest.mark.cuda
+def test_plan_engine_shards_over_every_card(card):
+    """PlanEngine(use_mesh=True): one shard per visible card, planned on
+    cuda:0; on one card the single-device solver."""
+    from adlb_tpu_torch.balancer.engine import PlanEngine
+
+    eng = PlanEngine(types=(1, 2), max_tasks=8, max_requesters=4,
+                     use_mesh=True, nservers=10_000)
+    cards = torch.cuda.device_count()
+    if cards == 1:
+        assert isinstance(eng.solver, AssignmentSolver)
+        return
+    sol = eng.solver
+    assert sol.devices == [torch.device("cuda", i) for i in range(cards)]
+    assert sol.device == torch.device("cuda", 0)
+    assert sol._Sl == -(-10_000 // cards)
 
 
 def _planned_cfg(**kw):
