@@ -17,19 +17,24 @@ index C + m < D).
   D] (the host tier merges them on the host, and with the table split across
   cards each card's list is a run of the merge below);
   :func:`merged_candidates` returns ``gp, gg`` [T, D] (the device tier hands
-  them to the auction); :func:`merge_runs` merges runs gathered from several
-  cards, ``cp, cg`` [n, T, D], into ``gp, gg`` [T, D] (the merge alone).
+  them to the auction); :func:`merge_runs` merges n runs, a list of [2, T,
+  D] (prio, gid) tensors that may lie on several cards, into ``gp, gg`` [T,
+  D] (the merge alone), reading each run where it lies.
 * On CUDA tensors each is one launch of ``csrc/candidates.cu``, built with
   ``nvcc`` into ``adlb_tpu_torch/_build/`` at first use and loaded with
-  ``ctypes``, on the tensors' card and its current stream;
-  :class:`Workspace` keeps the outputs, the merge's runs and tickets and,
-  where the keys do not fit in shared memory, the kernel's scratch buffer,
-  from launch to launch, and :class:`MergeWorkspace` the merge alone's
-  outputs.
+  ``ctypes``, on the tensors' card (the merge alone: the planning card) and
+  its current stream; :class:`Workspace` keeps the outputs, the merge's runs
+  and tickets and, where the keys do not fit in shared memory, the kernel's
+  scratch buffer, from launch to launch, and :class:`MergeWorkspace` the
+  merge alone's outputs and the pointer table of its runs (peer access to
+  the runs' cards enabled when it is built).
 * On CPU tensors they run the plain version, :func:`_shard_candidates` (all
   shards in one batch of torch ops) and :func:`_merge_candidates` (one
   stable sort of a packed key), whose first ``D`` columns are the merged
   candidates (:func:`merge_runs_torch` for the merge alone).
+* :func:`gather_runs` copies runs into one buffer on the planning device:
+  the merge's other route, for a placement whose planning card cannot read
+  every card's memory (no peer access); ``gather_copies`` counts its copies.
 
 There is no fallback between the two: a CUDA tensor launches the kernel or
 raises.
@@ -54,6 +59,12 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "candidates.cu"
 launches = 0
 #: launches of the merge alone (:class:`MergeWorkspace`), counted the same way
 merge_launches = 0
+#: runs copied into a gathered buffer (:func:`gather_runs`), one per run: 0
+#: on the route that reads the runs in place
+gather_copies = 0
+
+#: the merge alone's kernel variants (``adlb_candidates_merge_variant``)
+MERGE_VARIANTS = ("cluster", "staged", "device_memory")
 
 _lib = None
 _lib_path = None
@@ -112,11 +123,16 @@ def _merge_candidates(cp, cg):
     return ap.gather(1, o), ag.gather(1, o)
 
 
-def merge_runs_torch(cp, cg, D: int):
+def merge_runs_torch(runs, D: int):
     """The plain version of the merge alone: the first D entries of each
-    type's merge of the runs ``cp, cg`` [n, T, D], ``gp, gg`` [T, D]."""
-    _check_runs(cp, cg, D)
-    gp, gg = _merge_candidates(cp, cg)
+    type's merge of ``runs`` (n [2, T, D] tensors on one device), ``gp, gg``
+    [T, D]."""
+    _check_runs(runs, D)
+    if len({r.device for r in runs}) != 1:
+        raise ValueError(f"the plain merge takes runs on one device, got "
+                         f"{sorted({str(r.device) for r in runs})}")
+    both = torch.stack(list(runs))
+    gp, gg = _merge_candidates(both[:, 0], both[:, 1])
     return gp[:, :D].contiguous(), gg[:, :D].contiguous()
 
 
@@ -152,10 +168,10 @@ def build() -> Path:
         lib = ctypes.PyDLL(str(out))  # keeps the interpreter lock
         sigs = {
             "adlb_candidates_init": ([], ctypes.c_int),
-            "adlb_candidates_merge_staged": ([ctypes.c_int] * 2,
-                                             ctypes.c_int),
-            "adlb_candidates_merge": ([ctypes.c_void_p] * 2
-                                      + [ctypes.c_longlong]
+            "adlb_candidates_enable_peer": ([ctypes.c_int], ctypes.c_int),
+            "adlb_candidates_merge_variant": ([ctypes.c_int] * 2,
+                                              ctypes.c_int),
+            "adlb_candidates_merge": ([ctypes.c_void_p]
                                       + [ctypes.c_int] * 3
                                       + [ctypes.c_void_p] * 3, ctypes.c_int),
             "adlb_candidates_scratch_bytes": ([ctypes.c_int] * 5,
@@ -210,26 +226,27 @@ def _check(tp, tt, rk) -> None:
                              f"{x.stride()}")
 
 
-def _check_runs(cp, cg, D: int) -> None:
-    """The merge alone's input contract: int32 runs [n, T, D] on one device,
-    each run's entries contiguous, cp and cg strided alike."""
-    for name, x in (("cp", cp), ("cg", cg)):
-        if x.device != cp.device:
-            raise ValueError(f"{name} is on {x.device}, cp on {cp.device}")
-        if x.dtype != torch.int32 or x.dim() != 3:
-            raise ValueError(f"{name} must be a 3-d int32 tensor, got "
-                             f"{x.dim()}-d {x.dtype}")
-    n, T, Dr = cp.shape
-    if cg.shape != cp.shape or Dr != D:
-        raise ValueError(f"cp {tuple(cp.shape)} and cg {tuple(cg.shape)} "
-                         f"must both be [n, T, D={D}]")
-    for name, x in (("cp", cp), ("cg", cg)):
-        if x.stride(2) != 1 or (T > 1 and x.stride(1) != D) or (
-                n > 1 and (x.stride(0) != cp.stride(0)
-                           or x.stride(0) < T * D)):
-            raise ValueError(f"{name} must hold each run contiguous and the "
-                             f"cards' runs strided alike, got strides "
-                             f"{x.stride()}")
+def _check_runs(runs, D: int) -> None:
+    """The merge alone's input contract: a non-empty list of int32 runs
+    [2, T, D] (prio, gid), all of one device type and one T, each of the
+    2T lists contiguous (the prio and gid halves anywhere)."""
+    runs = list(runs)
+    if not runs:
+        raise ValueError("the merge needs at least one run")
+    T = runs[0].shape[1] if runs[0].dim() == 3 else -1
+    for i, r in enumerate(runs):
+        if r.dtype != torch.int32 or r.dim() != 3:
+            raise ValueError(f"run {i} must be a 3-d int32 tensor, got "
+                             f"{r.dim()}-d {r.dtype}")
+        if tuple(r.shape) != (2, T, D):
+            raise ValueError(f"run {i} is {tuple(r.shape)}, want [2, T={T}, "
+                             f"D={D}]")
+        if r.device.type != runs[0].device.type:
+            raise ValueError(f"run {i} is on {r.device}, run 0 on "
+                             f"{runs[0].device}")
+        if r.stride(2) != 1 or (T > 1 and r.stride(1) != D):
+            raise ValueError(f"run {i} must hold each type's list "
+                             f"contiguous, got strides {r.stride()}")
 
 
 def _row_stride(x) -> int:
@@ -289,40 +306,90 @@ class Workspace:
         return (self.gp, self.gg) if merge else (cp, cg)
 
 
-class MergeWorkspace:
-    """The merge alone's card buffers at one (n, T, D) shape: the merged
-    lists ``gp``, ``gg`` [T, D], reused from launch to launch. ``staged``:
-    the runs' keys fit in shared memory. Building the kernel comes first."""
+def enable_peer(device, peer) -> None:
+    """Let kernels on ``device`` read ``peer``'s memory (peer access from
+    ``device`` to ``peer``); harmless when already enabled, by an earlier
+    call or by PyTorch. Raises when the CUDA runtime refuses."""
+    device, peer = torch.device(device), torch.device(peer)
+    _ready(device)
+    with torch.cuda.device(device):
+        _raise_on(_lib.adlb_candidates_enable_peer(peer.index),
+                  f"peer access from {device} to {peer}")
 
-    def __init__(self, n: int, T: int, D: int, device) -> None:
+
+class MergeWorkspace:
+    """The merge alone on the planning card ``device``, over a fixed list of
+    ``runs`` (n [2, T, D] int32 tensors on cards, each read where it lies):
+    the merged lists ``gp``, ``gg`` [T, D] and the runs' pointer table
+    (prio and gid base of each run, uploaded once), reused from launch to
+    launch. Building it builds the kernel and enables peer access from
+    ``device`` to every other card that holds a run. ``variant``: the
+    kernel's variant at (n, D), one of :data:`MERGE_VARIANTS`."""
+
+    def __init__(self, runs, D: int, device) -> None:
+        runs = list(runs)
+        _check_runs(runs, D)
+        device = torch.device(device)
+        if device.type != "cuda" or runs[0].device.type != "cuda":
+            raise ValueError(f"the merge kernel runs on a card, got runs on "
+                             f"{runs[0].device} planned on {device}")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         _ready(device)
         if D > _lib.adlb_candidates_max_d():
             raise ValueError(f"D={D} is past the kernel's "
                              f"{_lib.adlb_candidates_max_d()}")
-        self.shape = (n, T, D)
-        self.staged = bool(_lib.adlb_candidates_merge_staged(n, D))
+        for peer in sorted({r.device.index for r in runs} - {device.index}):
+            enable_peer(device, torch.device("cuda", peer))
+        n, T = len(runs), runs[0].shape[1]
+        self.shape, self.device = (n, T, D), device
+        self.variant = MERGE_VARIANTS[
+            _lib.adlb_candidates_merge_variant(n, D)]
+        self.runs = runs  # held: the table points into them
+        self.ptrs = _run_ptrs(runs)
         with torch.cuda.device(device):
+            self.table = torch.tensor(self.ptrs, dtype=torch.int64,
+                                      device=device)
             self.gp = torch.empty((T, D), dtype=torch.int32, device=device)
             self.gg = torch.empty((T, D), dtype=torch.int32, device=device)
 
-    def launch(self, cp, cg):
-        """One launch on the runs' card and its current stream; returns
-        ``(gp, gg)``."""
+    def launch(self, runs=None):
+        """One launch on the planning card's current stream; returns ``(gp,
+        gg)``. ``runs``, when given, must be the runs the workspace was
+        built over (the same memory). The caller orders the launch after
+        the writes of every run (its card's stream, on another card) and
+        every later write of a run after it."""
         global merge_launches
         n, T, D = self.shape
-        _check_runs(cp, cg, D)
-        if tuple(cp.shape) != self.shape or cp.device != self.gp.device:
-            raise ValueError(f"workspace for runs [{n}, {T}, {D}] on "
-                             f"{self.gp.device}, got {tuple(cp.shape)} on "
-                             f"{cp.device}")
-        with torch.cuda.device(cp.device):
+        if runs is not None and _run_ptrs(runs) != self.ptrs:
+            raise ValueError(f"workspace for {n} runs at fixed addresses, "
+                             f"got other runs")
+        with torch.cuda.device(self.device):
             _raise_on(_lib.adlb_candidates_merge(
-                cp.data_ptr(), cg.data_ptr(), cp.stride(0), n, T, D,
-                self.gp.data_ptr(), self.gg.data_ptr(),
-                torch.cuda.current_stream(cp.device).cuda_stream),
+                self.table.data_ptr(), n, T, D, self.gp.data_ptr(),
+                self.gg.data_ptr(),
+                torch.cuda.current_stream(self.device).cuda_stream),
                 "merge launch")
         merge_launches += 1
         return self.gp, self.gg
+
+
+def _run_ptrs(runs) -> list:
+    """The prio and gid base address of each [2, T, D] int32 run."""
+    return [a for r in runs
+            for a in (r.data_ptr(), r.data_ptr() + 4 * r.stride(0))]
+
+
+def gather_runs(runs, into):
+    """Copy each run into ``into`` [n, 2, T, D] on the planning device (a
+    peer or same-card ``copy_`` on a card, ordered after the source card's
+    stream by PyTorch); returns the gathered runs ``into[i]``. The merge's
+    route for a placement without peer access."""
+    global gather_copies
+    for i, r in enumerate(runs):
+        into[i].copy_(r, non_blocking=True)
+    gather_copies += len(runs)
+    return [into[i] for i in range(len(runs))]
 
 
 def _run(tp, tt, rk, T: int, D: int, merge: bool, work):
@@ -353,17 +420,22 @@ def merged_candidates(tp, tt, rk, T: int, D: int,
     return _run(tp, tt, rk, T, D, True, work)
 
 
-def merge_runs(cp, cg, D: int, work: MergeWorkspace | None = None):
+def merge_runs(runs, D: int, work: MergeWorkspace | None = None):
     """The merge alone: ``gp, gg`` [T, D] int32, the first D entries of each
-    type's merge of the runs ``cp, cg`` [n, T, D] (each sorted by (prio desc,
-    gid asc) and padded, as :func:`shard_candidates` gives them). On CUDA
-    tensors one launch into ``work`` (a new :class:`MergeWorkspace` when
-    None), on CPU tensors :func:`merge_runs_torch`; any other device
-    raises."""
-    if cp.device.type == "cuda":
+    type's merge of ``runs`` (n [2, T, D] (prio, gid) tensors, each list
+    sorted by (prio desc, gid asc) and padded, as :func:`shard_candidates`
+    gives them). On CUDA tensors one launch into ``work`` (built over these
+    runs; a new :class:`MergeWorkspace` on run 0's card when None), reading
+    each run where it lies; on CPU tensors :func:`merge_runs_torch`; any
+    other device raises."""
+    runs = list(runs)
+    kind = runs[0].device.type if runs else None
+    if kind == "cuda":
         if work is None:
-            work = MergeWorkspace(*cp.shape, cp.device)
-        return work.launch(cp, cg)
-    if cp.device.type == "cpu":
-        return merge_runs_torch(cp, cg, D)
-    raise ValueError(f"no merge for device {cp.device}")
+            work = MergeWorkspace(runs, D, runs[0].device)
+        elif work.shape[2] != D:
+            raise ValueError(f"workspace for D={work.shape[2]}, got D={D}")
+        return work.launch(runs)
+    if kind == "cpu":
+        return merge_runs_torch(runs, D)
+    raise ValueError(f"no merge for device {runs[0].device if runs else None}")

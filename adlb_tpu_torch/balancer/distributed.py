@@ -465,6 +465,17 @@ class DistributedAssignmentSolver:
     the merge, the auction and the requester tables live there. Without
     ``devices`` the ``nshards`` shards are logical, all on ``device``.
 
+    Across devices the merge reads every piece's candidate lists where
+    kernel A wrote them (``merge_route`` ``"in_place"``: peer access from
+    the planning card to each other card, enabled when the solver is
+    built), or, on a placement where the planning card cannot reach a
+    piece's card by peer access, copies them to the planning device first
+    (``"gather"``). The route is chosen when the solver is built (``None``,
+    the default) or forced by ``merge_route``; a failed launch raises and
+    never switches it. :meth:`warm` builds the pieces, the workspaces, the
+    peer access and the events before the first plan (the engine calls it);
+    otherwise the first ingest does.
+
     ``solve(snapshots, world)`` is the engine-compatible entry: it diffs
     the snapshots against the resident state (``ingest``) — a stamp fast
     path skips unchanged servers outright when snapshots carry
@@ -510,10 +521,14 @@ class DistributedAssignmentSolver:
         job_weights: Optional[dict] = None,
         device: str = "cuda",
         devices: Optional[Sequence] = None,
+        merge_route: Optional[str] = None,
     ) -> None:
         if auction not in ("device", "host"):
             raise ValueError(
                 f"auction must be 'device' or 'host', got {auction!r}")
+        if merge_route not in (None, "in_place", "gather"):
+            raise ValueError(f"merge_route must be None, 'in_place' or "
+                             f"'gather', got {merge_route!r}")
         if devices is not None:
             if nshards not in (1, len(devices)):
                 raise ValueError(f"nshards={nshards} but {len(devices)} "
@@ -589,19 +604,29 @@ class DistributedAssignmentSolver:
         self._seen_tgen: Optional[np.ndarray] = None
         self._seen_rgen: Optional[np.ndarray] = None
 
-        # device state, allocated lazily (constructing a solver must not
-        # touch a card before first use): the resident table as pieces
-        # (_Piece), one of all the logical shards or one per device; with
-        # logical shards the piece's table [S, 2K+1], its [nshards, Sl, ...]
-        # blocks and its staging are also _dev_tab, _dev_blocks and _rows.
-        # Across devices: the gathered [n, 2, T, D] lists on the planning
-        # device and the merge alone's workspace
+        # device state, allocated by warm() or at the first ingest
+        # (constructing a solver touches no card): the resident table as
+        # pieces (_Piece), one of all the logical shards or one per device;
+        # with logical shards the piece's table [S, 2K+1], its [nshards, Sl,
+        # ...] blocks and its staging are also _dev_tab, _dev_blocks and
+        # _rows. Across devices (device tier): the pieces' runs, the merge
+        # alone's workspace over them (on a card), on the gather route the
+        # gathered [n, 2, T, D] lists on the planning device, and on the
+        # in-place route across cards one event per other card (its runs
+        # written) and one on the planning card (the runs read)
         self._pieces: Optional[list] = None
         self._dev_tab: Optional[torch.Tensor] = None
         self._dev_blocks: Optional[tuple] = None
         self._rows: Optional[_Staged] = None
+        self._want_route = merge_route
+        self.merge_route: Optional[str] = None
         self._gathered: Optional[torch.Tensor] = None
         self._merge_work: Optional[_candidates.MergeWorkspace] = None
+        self._runs: Optional[list] = None
+        self._runs_ready: dict = {}
+        self._merged: Optional[torch.cuda.Event] = None
+        #: runs this solver copied to the planning device (gather route)
+        self.gather_copies = 0
         # device-tier requester tables (rebuilt when reqs change):
         # compacted reqwin + lengths + initial open vector, one upload
         self._rwc: Optional[np.ndarray] = None
@@ -653,6 +678,13 @@ class DistributedAssignmentSolver:
         self._cand_dirty = True
         return True
 
+    def warm(self) -> None:
+        """Build the device state now: every piece on its device, the
+        kernels' workspaces, peer access from the planning card to the
+        others and the events (across cards, a CUDA context on every card
+        of the placement). Idempotent; the first ingest calls it too."""
+        self._ensure_built()
+
     def _ensure_built(self) -> None:
         if self._pieces is not None:
             return
@@ -664,16 +696,11 @@ class DistributedAssignmentSolver:
             self._dev_tab, self._dev_blocks = piece.tab, piece.blocks
             self._rows, self._cand_work = piece.staged, piece.work
         else:
-            self._pieces = [_Piece(i * Sl, 1, Sl, K, T, D, d)
-                            for i, d in enumerate(self.devices)]
+            pieces = [_Piece(i * Sl, 1, Sl, K, T, D, d)
+                      for i, d in enumerate(self.devices)]
             if self.auction == "device":
-                with _on(dev):
-                    self._gathered = torch.empty((ns, 2, T, D),
-                                                 dtype=torch.int32,
-                                                 device=dev)
-                if dev.type == "cuda":
-                    self._merge_work = _candidates.MergeWorkspace(ns, T, D,
-                                                                  dev)
+                self._build_merge(pieces)
+            self._pieces = pieces
         if self.auction == "device":
             U = T * C
             self._req_bytes = 4 * T * C + 4 * T + U + 1
@@ -685,6 +712,31 @@ class DistributedAssignmentSolver:
                 b[4 * T * (C + 1):self._req_bytes].view(torch.bool))
             if dev.type == "cuda":
                 self._work = _auction.Workspace(T, C, self.m, dev)
+
+    def _build_merge(self, pieces: list) -> None:
+        """The merge across devices: its route (chosen here, once, unless
+        forced), the runs it reads, its workspace on a card and, in place
+        across cards, the events that order it against kernel A."""
+        dev, T, D = self.device, self.T, self.D
+        route = self._want_route or ("in_place" if all(
+            d == dev or dev.type != "cuda"
+            or torch.cuda.can_device_access_peer(dev.index, d.index)
+            for d in self.devices) else "gather")
+        if route == "gather":
+            with _on(dev):
+                self._gathered = torch.empty((len(pieces), 2, T, D),
+                                             dtype=torch.int32, device=dev)
+        if dev.type == "cuda":
+            # the pieces' runs stay where kernel A writes them
+            self._runs = [p.work.cands[:, 0] for p in pieces]
+            self._merge_work = _candidates.MergeWorkspace(
+                list(self._gathered) if route == "gather" else self._runs,
+                D, dev)
+            others = sorted(set(self.devices) - {dev}, key=str)
+            if route == "in_place" and others:
+                self._runs_ready = {d: torch.cuda.Event() for d in others}
+                self._merged = torch.cuda.Event()
+        self.merge_route = route
 
     def _upload_rows(self, changed) -> None:
         """Ship the changed rows of the host mirror to the resident table:
@@ -1112,30 +1164,56 @@ class DistributedAssignmentSolver:
         self.sweep_count += 1
         self.last_sweep_ms = (time.perf_counter() - t0) * 1e3
 
-    def _device_plan(self) -> np.ndarray:
+    def _wait_runs(self) -> None:
+        """In place across cards: each other card's stream marks its runs
+        written (kernel A enqueued before), and the planning card's stream
+        waits for every mark before the merge reads them. Same-card pieces
+        share the planning stream and need none."""
+        if not self._runs_ready:
+            return
+        plan_stream = torch.cuda.current_stream(self.device)
+        for d, ev in self._runs_ready.items():
+            with _on(d):
+                ev.record()
+            plan_stream.wait_event(ev)
+
+    def _enqueue_device_plan(self) -> torch.Tensor:
         """The device-tier planning round (the plain versions on the CPU),
-        then one [T, C+1] readback. With logical shards: one candidates
-        launch (every shard's candidates and their merge, cut to [T, D]) and
-        one auction launch. Across devices: one candidates launch on each
-        device over its shard, each device's [2, T, D] lists copied to the
-        planning device (a peer copy, ordered after the launch: the copy
-        waits for the source's current stream, the planning device's current
-        stream for the copy), one launch of the merge alone and one auction
-        launch there."""
+        enqueued, not read back: the assignment [T, C+1] on the planning
+        device. With logical shards: one candidates launch (every shard's
+        candidates and their merge, cut to [T, D]) and one auction launch.
+        Across devices: one candidates launch on each device over its shard,
+        one launch of the merge alone and one auction launch on the planning
+        device. In place across cards the merge reads the runs over peer
+        access after :meth:`_wait_runs`, and each other card's next kernel A
+        waits for the merge's read (``_merged``): the pieces' runs are
+        overwritten by the next plan, which no readback may order. The
+        gather route copies the runs first (PyTorch orders a copy after its
+        source's stream and the planning stream after the copy)."""
         if self.devices is None:
             gp, gg = _candidates.merged_candidates(
                 *self._dev_blocks, self.T, self.D, work=self._cand_work)
         else:
-            for i, piece in enumerate(self._pieces):
-                self._gathered[i].copy_(piece.candidates(self.T, self.D)[:, 0],
-                                        non_blocking=True)
-            gp, gg = _candidates.merge_runs(
-                self._gathered[:, 0], self._gathered[:, 1], self.D,
-                work=self._merge_work)
+            for d in self._runs_ready:
+                torch.cuda.current_stream(d).wait_event(self._merged)
+            cands = [p.candidates(self.T, self.D) for p in self._pieces]
+            runs = self._runs or [c[:, 0] for c in cands]
+            if self._gathered is not None:
+                runs = _candidates.gather_runs(runs, self._gathered)
+                self.gather_copies += len(runs)
+            self._wait_runs()
+            gp, gg = _candidates.merge_runs(runs, self.D,
+                                            work=self._merge_work)
+            if self._merged is not None:
+                with _on(self.device):
+                    self._merged.record()
         rwc, lens, open0 = self._dev_req
-        assigned = _auction.auction(gp, gg, rwc, lens, open0, self.rounds,
-                                    self.m, work=self._work)
-        return assigned.cpu().numpy()[:, : self.C]
+        return _auction.auction(gp, gg, rwc, lens, open0, self.rounds, self.m,
+                                work=self._work)
+
+    def _device_plan(self) -> np.ndarray:
+        """:meth:`_enqueue_device_plan`, then one [T, C+1] readback."""
+        return self._enqueue_device_plan().cpu().numpy()[:, : self.C]
 
     def plan(self) -> list:
         """One fixed-shape planning round over the resident state."""
@@ -1183,6 +1261,23 @@ class DistributedAssignmentSolver:
         self.last_extract_ms = (time.perf_counter() - t1) * 1e3
         self.solve_count += 1
         return pairs
+
+    def planner_counts(self) -> dict:
+        """This solver's own counts, in the keys of the single-device
+        solver's ``planner_counts`` (it makes no greedy-sweep solves, so
+        those are 0) plus its plans (``device_plans``: device tier,
+        ``host_plans``: host tier), the merge's route across devices
+        (``merge_route``: ``"in_place"``, ``"gather"``, or None with logical
+        shards or before it is built) and the runs it copied to the planning
+        device (``gather_copies``)."""
+        device = self.auction == "device"
+        return {"device_solves": 0, "host_solves": 0,
+                "greedy_sweep_launches": 0, "solves_kept": 0,
+                "solves_checked": 0, "solves_wrong": 0, "device_shapes": [],
+                "device_plans": self.solve_count if device else 0,
+                "host_plans": 0 if device else self.solve_count,
+                "merge_route": self.merge_route,
+                "gather_copies": self.gather_copies}
 
     def solve(self, snapshots, world) -> list:
         """Engine-compatible one-call path: ingest deltas, then plan.

@@ -135,9 +135,11 @@ class PlanEngine:
             # card or the CPU plans on the single-device solver); with
             # nshards, that many logical shards on `device`; with devices, one
             # shard on each entry. Each card of a placement gets a CUDA
-            # context in this process. A construction or launch failure on
-            # any card propagates — degrading to the single-device solver
-            # would hide it
+            # context in this process, here: across devices the solver is
+            # warmed (pieces, workspaces, peer access, events) as the JAX
+            # engine builds its mesh, so no planning round pays for it. A
+            # construction or launch failure on any card propagates —
+            # degrading to the single-device solver would hide it
             if devices is None and nshards is None:
                 devices, _ = shard_placement(
                     device, torch.cuda.device_count()
@@ -160,6 +162,8 @@ class PlanEngine:
                     device=device,
                     devices=devices,
                 )
+                if devices is not None:
+                    self.solver.warm()
         if self.solver is None:
             kw = {}
             if host_threshold_reqs is not None:

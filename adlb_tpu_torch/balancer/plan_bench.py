@@ -49,11 +49,15 @@ def _mk_reqs(rng, s, R):
 def run_sweep(scales=None, reps: int = 40, nshards: int = 8,
               rounds: int = 16, auction: str = "device",
               device: str = "cuda", check_host: bool = False,
-              on_row=None, devices=None, check_logical: bool = False) -> dict:
+              on_row=None, devices=None, check_logical: bool = False,
+              merge_route=None, warm: bool = False) -> dict:
     """Returns the result dict. ``devices`` places one shard on each entry
-    (``nshards`` is then ``len(devices)``; ``device`` plans). ``on_row(solver,
-    row)``, when given, is called with each row's measured solver after the
-    row is done."""
+    (``nshards`` is then ``len(devices)``; ``device`` plans; ``merge_route``
+    forces the measured solver's merge route across them). ``warm`` builds
+    the measured solver's device state before its first ingest, as the
+    engine does (``warm_ms``); otherwise the first ingest builds it.
+    ``on_row(solver, row)``, when given, is called with each row's measured
+    solver after the row is done."""
     from adlb_tpu_torch.balancer.distributed import (
         DistributedAssignmentSolver,
     )
@@ -64,14 +68,19 @@ def run_sweep(scales=None, reps: int = 40, nshards: int = 8,
     for S, K, R in scales or SCALES:
         rng = np.random.default_rng(S)
 
-        def make(tier, devs=devices):
+        def make(tier, devs=devices, route=None):
             return DistributedAssignmentSolver(
                 TYPES, K, R, nshards=nshards, rounds=rounds,
                 servers_per_shard=-(-S // nshards), auction=tier,
-                device=device, devices=devs,
+                device=device, devices=devs, merge_route=route,
             )
 
-        solver = make(auction)
+        solver = make(auction, route=merge_route)
+        warm_ms = None
+        if warm:
+            t0 = time.perf_counter()
+            solver.warm()
+            warm_ms = (time.perf_counter() - t0) * 1e3
         twins = {}
         if check_host:
             twins["host_tier"] = make("host")
@@ -184,6 +193,7 @@ def run_sweep(scales=None, reps: int = 40, nshards: int = 8,
             "pairs_total": int(sum(npairs)),
             "device_sweep_ms": warm_sweep_ms,
             "sweeps": solver.sweep_count,
+            "warm_ms": warm_ms,
             "cold_ingest_ms": cold_ingest_ms,
             "first_plan_ms": first_plan_ms,
             "plans": solver.solve_count,
@@ -446,7 +456,8 @@ def main(argv=None) -> int:
         # plain versions run)
         out["launches"] = {"shard_candidates": candidates.launches,
                            "merge": candidates.merge_launches,
-                           "auction": auction.launches}
+                           "auction": auction.launches,
+                           "gather_copies": candidates.gather_copies}
     print(json.dumps(out))
     return 0
 

@@ -40,20 +40,32 @@ def start_sidecar(world, cfg, abort_event=None, host: str = "127.0.0.1"):
     hosts must stream snapshots here).
 
     On ``device="cuda"`` the greedy-sweep kernel is built here, and the
-    card's context opened, before the world starts, so no planning round
-    waits on the compiler or on CUDA's start-up: a small world's first
-    consumers drain their home server in well under the second the first
-    solve on a cold card took."""
+    context opened on every card the planner will plan over (with
+    ``balancer_mesh="auto"`` the sharded planner's placement, one shard per
+    card, whose kernels are built here too), before the world starts, so no
+    planning round waits on the compiler or on CUDA's start-up: a small
+    world's first consumers drain their home server in well under the
+    second the first solve on a cold card took."""
     from adlb_tpu_torch.runtime.transport_tcp import TcpEndpoint
 
     if cfg.balancer == "tpu" and cfg.device == "cuda":
         import torch
 
-        from adlb_tpu_torch.balancer import greedy_sweep
+        from adlb_tpu_torch.balancer import auction, candidates, greedy_sweep
+        from adlb_tpu_torch.balancer.engine import shard_placement
         from adlb_tpu_torch.balancer.solve import check_device
 
         greedy_sweep.build()
-        torch.zeros(1, device=check_device(cfg.device))  # the context
+        cards = [check_device(cfg.device)]
+        if cfg.balancer_mesh == "auto":
+            placement, _ = shard_placement(
+                cfg.device, torch.cuda.device_count(), world.nservers)
+            if placement is not None:
+                candidates.build()
+                auction.build()
+                cards = placement
+        for card in cards:
+            torch.zeros(1, device=card)  # the context
     ep = TcpEndpoint(
         world.nranks, {world.nranks: (host, 0)},
         binary_peers=set(world.server_ranks),

@@ -55,20 +55,33 @@
 //
 // The merge alone (adlb_candidates_merge) serves the device plan across
 // cards: each card runs the kernel above without `merge` over its own shard,
-// the planning card gathers the cards' [T, D] lists, and one block per type
-// merges that type's n runs by the same rank counting as step 4, keeping the
-// first D entries. It replaces the same JAX step (the all_gather and the two
-// stable sorts of _build_plan_fn, :170-179), which the JAX program runs
-// replicated on every device. Its bytes are the runs read once (n * T * D
-// pairs) and [T, D] written, a few tens of KB at the 10k row; its T blocks
-// (8 at the 10k row) each run n * D binary searches of log2(D) steps, so it
-// is latency bound. The runs' keys are staged in shared memory when they fit
-// beside the output (8 (n + 1) D bytes), else each probe reads the pair
-// from device memory.
+// and the merge reads the n cards' [T, D] lists where kernel A wrote them,
+// through a table of 2n run base pointers (prio, gid of each card; peer
+// pointers under peer access), keeping the first D entries of each type's
+// merge by the same rank counting as step 4. It replaces the same JAX step
+// (the all_gather and the two stable sorts of _build_plan_fn, :170-179),
+// which the JAX program runs replicated on every device. Its bytes are the
+// runs read once (n * T * D pairs, n - 1 of them over NVLink across cards)
+// and [T, D] written, a few tens of KB at the 10k row, so it is latency
+// bound: the design cuts the chain of dependent steps, not the bytes.
+//   * n <= 8 (the portable cluster size): one thread-block cluster of n
+//     blocks per type, T * n blocks. Block q stages run q of its type only
+//     (D pairs, 16-byte loads over the aligned middle), so each run crosses
+//     NVLink once and the n runs load in parallel; after a cluster barrier
+//     each thread ranks its own key against the other n - 1 runs in their
+//     blocks' shared memory (distributed shared memory), the n - 1 binary
+//     searches in lockstep so their loads overlap, and writes it straight to
+//     its place in gp, gg when that is below D. Block 0 writes the padding
+//     past the type's live total; a second cluster barrier keeps every
+//     block's shared memory alive until its siblings are done reading.
+//   * n > 8: one block per type stages all n runs in shared memory when they
+//     fit beside the output (8 (n + 1) D bytes), else each probe reads the
+//     pair from device memory; each thread ranks n * D / blockDim keys.
 
 #include <cstddef>
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -346,15 +359,119 @@ bool fits_shared(int ns, int Sl, int K, int D) {
 // Dynamic shared memory the merge's staged variant may take (set at init).
 int g_merge_max_dyn = 0;
 
-// The first D entries of each type's merge of n runs: run q of type t is the
-// (prio, gid) pairs at cp, cg + q * card_stride + t * D, ascending by key
-// (prio desc, gid asc) and padded. One block per type; equal keys keep the
+// The largest cluster the merge launches (the portable limit).
+constexpr int kMaxCluster = 8;
+
+// Writes one word of each of the D keys at `words` (two words a key, low
+// first) from the D int32 at `src`: the high word from a prio (kPrio), the
+// low word from a gid, as make_key packs them. 16-byte loads over the
+// aligned middle of `src`, one int at a time over its ragged ends.
+template <bool kPrio>
+__device__ __forceinline__ void put_word(unsigned* words, int i, int x) {
+  if (kPrio)
+    words[2 * i + 1] = ~((unsigned)x ^ 0x80000000u);
+  else
+    words[2 * i] = (unsigned)x ^ 0x80000000u;
+}
+
+template <bool kPrio>
+__device__ __forceinline__ void stage_words(const int* __restrict__ src,
+                                            unsigned* words, int D) {
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int head = min(D, (int)((16 - ((size_t)src & 15)) & 15) >> 2);
+  const int nvec = (D - head) >> 2, tail = head + 4 * nvec;
+  const int4* v = reinterpret_cast<const int4*>(src + head);
+  for (int j = tid; j < nvec; j += nth) {
+    const int4 x = v[j];
+    const int i = head + 4 * j;
+    put_word<kPrio>(words, i, x.x);
+    put_word<kPrio>(words, i + 1, x.y);
+    put_word<kPrio>(words, i + 2, x.z);
+    put_word<kPrio>(words, i + 3, x.w);
+  }
+  for (int j = tid; j < head + D - tail; j += nth) {
+    const int i = j < head ? j : tail + (j - head);
+    put_word<kPrio>(words, i, src[i]);
+  }
+}
+
+// The first D entries of each type's merge of n <= kMaxCluster runs, one
+// cluster of n blocks per type: block q of cluster t holds run q of type t,
+// the (prio, gid) pairs at table[2q] + t * D and table[2q + 1] + t * D,
+// ascending by key (prio desc, gid asc) and padded. Equal keys keep the
 // order of their runs (the stable merge of the runs in card order).
+__global__ void __launch_bounds__(kThreads)
+merge_cluster_kernel(const int* const* __restrict__ table, int D,
+                     int* __restrict__ gp, int* __restrict__ gg) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_live;
+  u64* keys = (u64*)smem;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const size_t at = (size_t)(blockIdx.x / n) * D;
+
+  if (tid == 0) s_live = 0;
+  stage_words<true>(table[2 * q] + at, (unsigned*)keys, D);
+  stage_words<false>(table[2 * q + 1] + at, (unsigned*)keys, D);
+  __syncthreads();
+  // the run's live length: padding sorts last
+  for (int i = tid; i < D; i += nth)
+    if (keys[i] != kPad && (i + 1 == D || keys[i + 1] == kPad)) s_live = i + 1;
+  cluster.sync();
+
+  const u64* other[kMaxCluster];
+#pragma unroll
+  for (int p = 0; p < kMaxCluster; ++p)
+    other[p] = cluster.map_shared_rank(keys, p < n ? p : q);
+  int top = 1;
+  while (2 * top <= D) top <<= 1;
+  const int live = s_live;
+  for (int i = tid; i < live; i += nth) {
+    const u64 k = keys[i];
+    // in each other run, the count of keys placed before k: smaller ones,
+    // and equal ones of the runs before q
+    int cnt[kMaxCluster];
+#pragma unroll
+    for (int p = 0; p < kMaxCluster; ++p) cnt[p] = 0;
+    for (int step = top; step > 0; step >>= 1) {
+#pragma unroll
+      for (int p = 0; p < kMaxCluster; ++p) {
+        const int j = cnt[p] + step;
+        if (p < n && p != q && j <= D) {
+          const u64 v = other[p][j - 1];
+          if (p < q ? v <= k : v < k) cnt[p] = j;
+        }
+      }
+    }
+    int pos = i;
+#pragma unroll
+    for (int p = 0; p < kMaxCluster; ++p) pos += cnt[p];
+    if (pos < D) {
+      gp[at + pos] = key_prio(k);
+      gg[at + pos] = key_gid(k);
+    }
+  }
+  if (q == 0) {  // the live keys fill [0, total); padding after them
+    int total = 0;
+    for (int p = 0; p < n; ++p) total += *cluster.map_shared_rank(&s_live, p);
+    for (int i = min(total, D) + tid; i < D; i += nth) {
+      gp[at + i] = kNeg;
+      gg[at + i] = 0x7FFFFFFF;
+    }
+  }
+  cluster.sync();  // no block leaves while a sibling reads its keys
+}
+
+// The first D entries of each type's merge of n runs, one block per type:
+// run q of type t at table[2q] + t * D (prio) and table[2q + 1] + t * D
+// (gid), ascending by key (prio desc, gid asc) and padded. Equal keys keep
+// the order of their runs (the stable merge of the runs in card order).
 template <bool kStaged>
 __global__ void __launch_bounds__(kThreads, 1)
-merge_kernel(const int* __restrict__ cp, const int* __restrict__ cg,
-             long long card_stride, int n, int D, int* __restrict__ gp,
-             int* __restrict__ gg) {
+merge_kernel(const int* const* __restrict__ table, int n, int D,
+             int* __restrict__ gp, int* __restrict__ gg) {
   extern __shared__ __align__(16) unsigned char smem[];
   u64* sorted = (u64*)smem;
   u64* keys = sorted + D;  // staged variant only
@@ -363,15 +480,15 @@ merge_kernel(const int* __restrict__ cp, const int* __restrict__ cg,
     if constexpr (kStaged) {
       return keys[(size_t)q * D + i];
     } else {
-      const size_t at = (size_t)q * card_stride + (size_t)t * D + i;
-      return make_key(__ldg(cp + at), __ldg(cg + at));
+      const size_t at = (size_t)t * D + i;
+      return make_key(__ldg(table[2 * q] + at), __ldg(table[2 * q + 1] + at));
     }
   };
   if constexpr (kStaged) {
     for (int e = tid; e < L; e += kThreads) {
       const int q = e / D;
-      const size_t at = (size_t)q * card_stride + (size_t)t * D + (e - q * D);
-      keys[e] = make_key(cp[at], cg[at]);
+      const size_t at = (size_t)t * D + (e - q * D);
+      keys[e] = make_key(table[2 * q][at], table[2 * q + 1][at]);
     }
   }
   for (int i = tid; i < D; i += kThreads) sorted[i] = kPad;
@@ -438,7 +555,21 @@ int adlb_candidates_init() {
     err = cudaFuncSetAttribute(merge_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                g_merge_max_dyn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(merge_cluster_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               8 * kMaxD);
   return (int)err;
+}
+
+// With the planning card current: lets its kernels read `peer`'s memory
+// (cudaDeviceEnablePeerAccess). Access that is already enabled, by an
+// earlier call or by PyTorch, counts as success. Returns the CUDA error
+// code.
+int adlb_candidates_enable_peer(int peer) {
+  const cudaError_t err = cudaDeviceEnablePeerAccess(peer, 0);
+  cudaGetLastError();  // returned here: leave no error for the next launch
+  return err == cudaErrorPeerAccessAlreadyEnabled ? 0 : (int)err;
 }
 
 // Bytes of device scratch a launch at (nshards, Sl, K, T, D) needs: 0 when
@@ -489,33 +620,60 @@ int adlb_candidates(const int* tp, const int* tt, const int* rk,
   return (int)cudaGetLastError();
 }
 
-// 1 when a merge of n runs of D stages the runs' keys in shared memory
-// (after adlb_candidates_init).
-int adlb_candidates_merge_staged(int n, int D) {
-  return merge_staged_bytes(n, D) <= (size_t)g_merge_max_dyn;
+// The variant a merge of n runs of D takes (after adlb_candidates_init):
+// 0, one cluster of n blocks per type (n <= 8); 1, one block per type with
+// the runs staged in shared memory; 2, one block per type reading the runs
+// from device memory.
+int adlb_candidates_merge_variant(int n, int D) {
+  if (n <= kMaxCluster) return 0;
+  return merge_staged_bytes(n, D) <= (size_t)g_merge_max_dyn ? 1 : 2;
 }
 
-// Launches the merge alone on `stream`: cp, cg int32, run q of type t at
-// q * card_stride + t * D, each run sorted by (prio desc, gid asc) and padded
-// with (-(2^31) + 1, 2^31 - 1); writes gp, gg [T, D], the first D entries of
-// each type's merge. Returns the CUDA error code of the launch; does not
+// Launches the merge alone on `stream`. `table`: 2n device pointers, readable
+// from the current card (its own memory, or a peer's under peer access):
+// run q's prios at table[2q] and gids at table[2q + 1], type t's D pairs
+// from + t * D, each run sorted by (prio desc, gid asc) and padded with
+// (-(2^31) + 1, 2^31 - 1). Writes gp, gg [T, D], the first D entries of each
+// type's merge. Returns the CUDA error code of the launch; does not
 // synchronise.
-int adlb_candidates_merge(const int* cp, const int* cg, long long card_stride,
-                          int n, int T, int D, int* gp, int* gg,
-                          void* stream) {
+int adlb_candidates_merge(const int* const* table, int n, int T, int D,
+                          int* gp, int* gg, void* stream) {
   if (n < 1 || T < 1 || D < 1 || D > kMaxD ||
-      (long long)n * D >= (1LL << 31) ||
-      (n > 1 && card_stride < (long long)T * D) || cp == nullptr ||
-      cg == nullptr || gp == nullptr || gg == nullptr)
+      (long long)n * D >= (1LL << 31) || (long long)n * T >= (1LL << 31) ||
+      table == nullptr || gp == nullptr || gg == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (adlb_candidates_merge_staged(n, D)) {
-    merge_kernel<true><<<(unsigned)T, kThreads, merge_staged_bytes(n, D),
-                         (cudaStream_t)stream>>>(cp, cg, card_stride, n, D,
-                                                 gp, gg);
-  } else {
-    merge_kernel<false><<<(unsigned)T, kThreads, 8 * (size_t)D,
-                          (cudaStream_t)stream>>>(cp, cg, card_stride, n, D,
-                                                  gp, gg);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (adlb_candidates_merge_variant(n, D)) {
+    case 0: {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3((unsigned)(n * T));
+      // one thread a key, in whole warps
+      const int threads = (D + 31) / 32 * 32;
+      cfg.blockDim = dim3((unsigned)(threads < kThreads ? threads : kThreads));
+      cfg.dynamicSmemBytes = 8 * (size_t)D;
+      cfg.stream = s;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = (unsigned)n;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      const cudaError_t err =
+          cudaLaunchKernelEx(&cfg, merge_cluster_kernel, table, D, gp, gg);
+      if (err != cudaSuccess) {
+        cudaGetLastError();  // returned here: leave no stale error behind
+        return (int)err;
+      }
+      break;
+    }
+    case 1:
+      merge_kernel<true><<<(unsigned)T, kThreads, merge_staged_bytes(n, D),
+                           s>>>(table, n, D, gp, gg);
+      break;
+    default:
+      merge_kernel<false><<<(unsigned)T, kThreads, 8 * (size_t)D, s>>>(
+          table, n, D, gp, gg);
   }
   return (int)cudaGetLastError();
 }

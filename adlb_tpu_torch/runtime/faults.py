@@ -134,6 +134,12 @@ class FaultPlan:
         self.log_dir = spec.get("log_dir") or os.environ.get(
             "ADLB_FAULT_LOG_DIR"
         )
+        # what the rank's owner would lose at an injected kill: a callable
+        # returning a JSON-able dict (a server sets it: its planner's
+        # counts, which a SIGKILL takes with it), called when the kill
+        # fires and written to the log as "state"
+        self.state = None
+        self._state_at_kill: Optional[dict] = None
         self._rng = random.Random(_mix(self.seed, rank))
         self._lock = threading.Lock()
         self.frame = 0  # outbound frames observed (post-increment)
@@ -334,9 +340,12 @@ class FaultPlan:
             os.makedirs(self.log_dir, exist_ok=True)
             path = os.path.join(self.log_dir, f"faults-rank{self.rank}.json")
             tmp = f"{path}.{os.getpid()}.tmp"
+            doc = {"rank": self.rank, "seed": self.seed,
+                   "events": self.events}
+            if self._state_at_kill is not None:
+                doc["state"] = self._state_at_kill
             with open(tmp, "w") as f:
-                json.dump({"rank": self.rank, "seed": self.seed,
-                           "events": self.events}, f)
+                json.dump(doc, f)
             os.replace(tmp, path)
         except OSError:
             pass
@@ -394,7 +403,15 @@ class FaultyEndpoint:
     # -- fault enactment -----------------------------------------------------
 
     def _kill_now(self) -> None:
+        state = None
+        if self.plan.state is not None:
+            # outside the plan's lock: the owner's counts take their own
+            try:
+                state = self.plan.state()
+            except Exception as e:  # noqa: BLE001 — the kill goes on
+                state = {"error": repr(e)}
         with self.plan._lock:
+            self.plan._state_at_kill = state
             self.plan.events.append((self.plan.frame, KILL, "<timer>", -1))
             self.plan._flush_log()
         try:

@@ -286,6 +286,10 @@ class Server:
         self.world = world
         self.cfg = cfg
         self.ep = ep
+        from adlb_tpu_torch.runtime.faults import FaultyEndpoint
+
+        if isinstance(ep, FaultyEndpoint):
+            ep.plan.state = self._state_at_kill  # an injected kill's record
         self.rank = ep.rank
         self.is_master = self.rank == world.master_server_rank
         self.local_apps = set(world.local_apps(self.rank))
@@ -8264,6 +8268,14 @@ class Server:
             self.ep.send(ds, msg(Tag.DS_END, self.rank))
 
     # ------------------------------------------------------- stats surface
+
+    def _state_at_kill(self) -> dict:
+        """What an injected SIGKILL of this server takes with it, for the
+        fault log (``FaultPlan.state``): its planner's counts so far (None
+        when it never planned), the ``WorldResult.planner`` entry a killed
+        rank cannot send."""
+        s = self._solver
+        return {"planner": None if s is None else s.planner_counts()}
 
     def planner_report(self) -> Optional[dict]:
         """What this server's planner did (``AssignmentSolver.

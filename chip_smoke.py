@@ -118,21 +118,30 @@ no result). Phases:
     and the plan round launches kernel A;
 17. the sharded planner with its task table split across the cards, one
     shard per card (``DistributedAssignmentSolver(devices=...)``): the
-    card count, peer access to card 0 and the placement printed; the merge
-    alone (``csrc/candidates.cu``'s second kernel) bit-equal to its plain
-    version and the numpy twin on fuzzed runs (n 1 to 8 cards, short and
-    padded runs, ties in prio, D up to the kernel's largest, keys in shared
-    and in device memory); ``plan_bench``'s 10k row over min(8, cards)
-    shards (8 on cuda:0 when one card is visible), 40 rounds, every
-    round's assignment and pair list equal to the one-card solver's on as
-    many logical shards and to the host tier's across the same cards, kernel A
-    launched on each card, the merge alone and the auction once per device
-    plan; the round split (p50 / p99), each card's kernel A, the gather,
-    the merge and the auction in CUDA events on their cards; then
-    ``dryrun_multichip(8)`` (``adlb_tpu_torch/graft_entry.py``) over the
-    card placement, its engine round planning matches and migrations.
-    ``python3 chip_smoke.py --phase 17`` builds the kernels and runs this
-    phase alone (a machine with several cards).
+    card count, cuda:0's peer access to each card, its NVLink rate
+    (``nvidia-smi nvlink -s``) and the placement printed; the merge alone
+    (``csrc/candidates.cu``'s second kernel) in place over separately
+    allocated runs spread over the cards, bit-equal to its plain version
+    and the numpy twin on fuzzed runs (n 1 to 16 runs, short and padded
+    runs, ties in prio, D up to the kernel's largest; its cluster variant
+    up to 8 runs, its staged and device-memory variants past 8);
+    ``plan_bench``'s 10k row over min(8, cards) shards (8 on cuda:0 when
+    one card is visible), 40 rounds, every round's assignment and pair
+    list equal to the one-card solver's on as many logical shards and to
+    the host tier's across the same cards, the merge reading the cards'
+    runs in place (route ``in_place``, 0 gather copies), kernel A launched
+    on each card, the merge alone and the auction once per device plan;
+    the round split (p50 / p99), each card's kernel A, the event
+    record/wait, the merge (with its plain version, its library yardstick
+    ``torch.sort`` and its HBM and NVLink bound) and the auction in CUDA
+    events on their cards; the gather route (the runs copied) timed beside
+    it and the two routes' device plans in turns; the cold first round in
+    fresh processes, built lazily and warmed
+    (``scripts/cold_plan_torch.py``); then ``dryrun_multichip(8)``
+    (``adlb_tpu_torch/graft_entry.py``) over the card placement, its
+    engine round planning matches and migrations. ``python3 chip_smoke.py
+    --phase 17`` builds the kernels and runs this phase alone (a machine
+    with several cards).
 
 Each phase's wall time is printed.
 
@@ -592,19 +601,32 @@ class PlannerTimer:
 
 
 #: phase 17's fuzz cases of the merge alone: (n runs, T, D, share of each
-#: run that is live), D up to the kernel's largest
+#: run that is live), D up to the kernel's largest; n <= 8 takes the cluster
+#: variant, n > 8 the staged one (keys in shared memory) or, past it, the
+#: device-memory one
 MERGE_CASES = ((1, 8, 545, 0.6), (2, 8, 545, 0.3), (3, 8, 545, 1.0),
                (8, 8, 545, 0.5), (8, 8, 545, 0.02), (2, 1, 1, 1.0),
                (3, 24, 13, 0.5), (8, 64, 33, 0.9), (3, 8, 4096, 0.7),
-               (8, 8, 4096, 0.8))
+               (8, 8, 4096, 0.8), (12, 8, 545, 0.5), (16, 24, 33, 0.9),
+               (9, 8, 4096, 0.8))
 
 
-def merge_instance(rng, n, T, D, live, device="cuda"):
+def merge_variant(n: int, D: int) -> str:
+    """The variant the merge kernel takes at (n, D) on an H100 (227 KB of
+    shared memory a block): what phase 17 expects the kernel to report."""
+    if n <= 8:
+        return "cluster"
+    return "staged" if 8 * (n + 1) * D <= 227 * 1024 else \
+        "device_memory"
+
+
+def merge_instance(rng, n, T, D, live, devices=("cuda",)):
     """n runs [n, T, D] of (prio, gid) pairs as kernel A leaves them: each
     sorted by (prio desc, gid asc), a random share of it live and the rest
     padding, prios from a narrow range (many ties, broken by gid) and some
-    pairs held by two runs. Returns numpy (cp, cg) and the (cp, cg) views
-    of one gathered [n, 2, T, D] buffer on ``device``."""
+    pairs held by two runs. Returns numpy (cp, cg) and the runs as n
+    separately allocated [2, T, D] tensors, run q on ``devices[q %
+    len(devices)]``."""
     import torch
 
     p = rng.integers(-4, 4, (n, T, D)).astype(np.int64)
@@ -619,28 +641,38 @@ def merge_instance(rng, n, T, D, live, device="cuda"):
     order = np.argsort(((-p) << 32) + g, axis=2, kind="stable")
     cp = np.take_along_axis(p, order, 2).astype(np.int32)
     cg = np.take_along_axis(g, order, 2).astype(np.int32)
-    buf = torch.from_numpy(np.stack([cp, cg], axis=1)).to(device)
-    return (cp, cg), (buf[:, 0], buf[:, 1])
+    runs = [torch.from_numpy(np.stack([cp[q], cg[q]])).to(
+        devices[q % len(devices)]) for q in range(n)]
+    return (cp, cg), runs
 
 
-def check_merge(candidates, report) -> int:
-    """Phase 17: the merge alone against its plain version and the numpy
-    twin ``_merge_shard_major`` cut to D on every case, launched twice
-    into one workspace. Exact equality. Returns the largest absolute
-    difference seen."""
+def check_merge(candidates, report) -> tuple:
+    """Phase 17: the merge alone, in place over separately allocated runs
+    (spread over every visible card, read over peer access, when there are
+    several), against its plain version (on a gathered copy) and the numpy
+    twin ``_merge_shard_major`` cut to D on every case, launched twice into
+    one workspace; each case's kernel variant as expected. Exact equality.
+    Returns (the largest absolute difference seen, the variants run)."""
     import torch
 
     from adlb_tpu_torch.balancer import distributed as dist
 
-    err = 0
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    plan = cards[0]
+    err, variants = 0, {}
     for i, (n, T, D, live) in enumerate(MERGE_CASES):
-        (cp, cg), (dp, dg) = merge_instance(np.random.default_rng(1700 + i),
-                                            n, T, D, live)
+        (cp, cg), runs = merge_instance(np.random.default_rng(1700 + i),
+                                        n, T, D, live, cards)
         want = [x[:, :D] for x in dist._merge_shard_major(cp, cg)]
-        plain = candidates.merge_runs_torch(dp, dg, D)
-        work = candidates.MergeWorkspace(n, T, D, dp.device)
+        plain = candidates.merge_runs_torch([r.to(plan) for r in runs], D)
+        work = candidates.MergeWorkspace(runs, D, plan)
+        if work.variant != merge_variant(n, D):
+            raise AssertionError(f"the merge alone took variant "
+                                 f"{work.variant} at n={n} D={D}, want "
+                                 f"{merge_variant(n, D)}")
         for _ in range(2):
-            got = [x.clone() for x in work.launch(dp, dg)]
+            got = [x.clone() for x in candidates.merge_runs(runs, D,
+                                                            work=work)]
             torch.cuda.synchronize()
             for g, p, w in zip(got, plain, want):
                 err = max(err, int((g.long() - p.long()).abs().max()))
@@ -648,62 +680,119 @@ def check_merge(candidates, report) -> int:
                         and np.array_equal(g.cpu().numpy(), w)):
                     raise AssertionError(f"the merge alone disagrees on "
                                          f"n={n} T={T} D={D}")
+        variants.setdefault(work.variant, []).append([n, T, D])
         report(f"phase 17: merge alone n={n} T={T} D={D} (live share "
-               f"{live}): kernel == plain == numpy twin, twice; keys in "
-               f"{'shared memory' if work.staged else 'device memory'}")
-    return err
+               f"{live}), runs on "
+               f"{sorted({str(r.device) for r in runs})}: kernel == plain "
+               f"== numpy twin, twice; variant {work.variant}")
+    return err, variants
 
 
-def time_across_cards(solver, candidates) -> dict:
+def nvlink_rate(card: int = 0):
+    """The planning card's NVLink rate each way, bytes/s: the sum of its
+    links' rates as ``nvidia-smi nvlink -s -i <card>`` reports them (None
+    when it reports none)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "nvlink", "-s", "-i", str(card)],
+                             capture_output=True, text=True,
+                             timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return None, ""
+    rates = [float(x) for x in re.findall(
+        r"Link \d+:\s*([0-9.]+)\s*GB/s", out)]
+    return (sum(rates) * 1e9 if rates else None), out.strip()
+
+
+def packed_keys(gathered):
+    """The merge's library yardstick's input: every run's (prio, gid) pairs
+    of a gathered [n, 2, T, D] buffer as int64 keys [T, n D] whose
+    ascending order is (prio desc, gid asc) (``solve._pack2``)."""
+    from adlb_tpu_torch.balancer.solve import _pack2
+
+    T = gathered.shape[2]
+    ap = gathered[:, 0].permute(1, 0, 2).reshape(T, -1)
+    ag = gathered[:, 1].permute(1, 0, 2).reshape(T, -1)
+    return _pack2(-ap, ag)
+
+
+def time_across_cards(solver, candidates, link_rate=None) -> dict:
     """On a device-tier solver split across cards: each card's kernel-A
-    launch (median of CUDA-event windows on that card's current stream),
-    the gather (events on the planning card's stream around the copies,
-    after the launches finished), the merge alone and the auction (events
-    on the planning card), the whole device plan without its readback
-    (events on the planning card from before the first launch to after the
-    auction: its stream waits for every card's copy), the same with its
-    readback on the host clock, the merge alone's plain version and its
-    bytes bound. Every card is warmed up first. Its launches count as any
-    other: call it after the counts were read."""
+    launch (median of CUDA-event windows on that card's current stream);
+    on the planning card's stream the hand-over of the runs (in place: the
+    event record on each other card and the planning stream's wait; on the
+    gather route: the copies), the merge alone per call and back to back,
+    the auction, and the whole device plan without its readback (events on
+    the planning card from before the first launch to after the auction:
+    its stream waits for every card); the same with its readback on the
+    host clock; the merge alone's plain version and its library yardstick
+    (``torch.sort`` of the packed keys over [T, n D], cut to D, on a
+    gathered copy, checked equal to the kernel's output); its bound: the
+    runs read once and [T, D] written over HBM, and the runs of the other
+    cards over the planning card's NVLink rate (``link_rate``, bytes/s).
+    Every card is warmed up first. Its launches count as any other: call
+    it after the counts were read."""
     import torch
 
     T, D = solver.T, solver.D
     plan = solver.device
     rwc, lens, open0 = solver._dev_req
-    g = solver._gathered
     mw, aw = solver._merge_work, solver._work
-
-    def gather():
-        for i, piece in enumerate(solver._pieces):
-            g[i].copy_(piece.work.cands[:, 0], non_blocking=True)
-
-    def device_plan():
-        for piece in solver._pieces:
-            piece.work.launch(*piece.blocks, False)
-        gather()
-        mw.launch(g[:, 0], g[:, 1])
-        aw.launch(mw.gp, mw.gg, rwc, lens, open0, solver.rounds)
-
+    src = [p.work.cands[:, 0] for p in solver._pieces]
     for _ in range(3):
-        device_plan()
+        solver._enqueue_device_plan()
     for d in set(solver.devices) | {plan}:
         torch.cuda.synchronize(d)
-    out = {"kernel_a_ms": []}
+
+    def launches_only():
+        # the device plan's launches and hand-over with no wrapper around
+        # them (how the gather design's plan was first timed)
+        for d in solver._runs_ready:
+            torch.cuda.current_stream(d).wait_event(solver._merged)
+        for piece in solver._pieces:
+            piece.work.launch(*piece.blocks, False)
+        if solver._gathered is not None:
+            candidates.gather_runs(src, solver._gathered)
+        solver._wait_runs()
+        mw.launch()
+        if solver._merged is not None:
+            solver._merged.record()
+        aw.launch(mw.gp, mw.gg, rwc, lens, open0, solver.rounds)
+
+    out = {"merge_route": solver.merge_route, "kernel_a_ms": []}
     for piece in solver._pieces:
         with torch.cuda.device(piece.device):
             out["kernel_a_ms"].append(time_ms(
                 lambda: piece.work.launch(*piece.blocks, False), reps=50))
     with torch.cuda.device(plan):
-        out["gather_ms"] = time_ms(gather, reps=50)
-        out["merge_ms"] = time_ms(lambda: mw.launch(g[:, 0], g[:, 1]),
-                                  reps=50)
-        out["merge_ms_back_to_back"] = back_to_back_ms(
-            lambda: mw.launch(g[:, 0], g[:, 1]), reps=200)
+        if solver.merge_route == "gather":
+            out["gather_ms"] = time_ms(
+                lambda: candidates.gather_runs(src, solver._gathered),
+                reps=50)
+        else:
+            out["event_wait_ms"] = time_ms(solver._wait_runs, reps=50)
+        out["merge_ms"] = time_ms(mw.launch, reps=50)
+        out["merge_ms_back_to_back"] = back_to_back_ms(mw.launch, reps=200)
         out["auction_ms"] = time_ms(lambda: aw.launch(
             mw.gp, mw.gg, rwc, lens, open0, solver.rounds), reps=50)
-        out["device_plan_ms"] = time_ms(device_plan, reps=50)
+        out["device_plan_ms"] = time_ms(solver._enqueue_device_plan,
+                                        reps=50)
+        out["device_plan_launches_ms"] = time_ms(launches_only, reps=50)
+        gathered = torch.stack([r.to(plan) for r in src])
+        torch.cuda.synchronize()
         out["merge_plain_ms"] = time_ms(
-            lambda: candidates.merge_runs_torch(g[:, 0], g[:, 1], D), reps=50)
+            lambda: candidates.merge_runs_torch(list(gathered), D), reps=50)
+        keys = packed_keys(gathered)
+        out["merge_library_ms"] = time_ms(
+            lambda: torch.sort(keys, dim=-1).values[:, :D], reps=50)
+        mw.launch()
+        top = torch.sort(keys, dim=-1).values[:, :D]
+        torch.cuda.synchronize()
+        lib = (-(top >> 32)).to(torch.int32), \
+            ((top & 0xFFFFFFFF) - 2**31).to(torch.int32)
+        if not (torch.equal(lib[0], mw.gp) and torch.equal(lib[1], mw.gg)):
+            raise AssertionError("phase 17: the library yardstick (a sort "
+                                 "of the packed keys) differs from the "
+                                 "merge's output")
     host = []
     for _ in range(21):
         t0 = time.perf_counter()
@@ -711,24 +800,95 @@ def time_across_cards(solver, candidates) -> dict:
         host.append(time.perf_counter() - t0)
     out["device_plan_host_clock_ms"] = 1e3 * statistics.median(host[1:])
     n = len(solver._pieces)
-    # the runs read once, [T, D] written once: (n + 1) T D pairs of int32
-    out["merge_bound_ms"] = (n + 1) * T * D * 8 / HBM_BYTES_PER_S * 1e3
-    out["merge_staged"] = mw.staged
+    remote = sum(d != plan for d in solver.devices)
+    # the runs read once, [T, D] written once: (n + 1) T D pairs of int32;
+    # the other cards' runs cross the planning card's NVLink once
+    out["merge_bound_hbm_ms"] = (n + 1) * T * D * 8 / HBM_BYTES_PER_S * 1e3
+    out["merge_bound_nvlink_ms"] = (remote * T * D * 8 / link_rate * 1e3
+                                    if link_rate else None)
+    out["merge_bound_ms"] = max(out["merge_bound_hbm_ms"],
+                                out["merge_bound_nvlink_ms"] or 0.0)
+    out["merge_bound_by"] = ("bytes over NVLink"
+                             if out["merge_bound_ms"]
+                             > out["merge_bound_hbm_ms"] else "bytes")
+    out["merge_variant"] = mw.variant
+    return out
+
+
+def compare_routes(sol, gsol, rounds=10, reps=20) -> dict:
+    """The device plan of the in-place solver ``sol`` against the gather
+    route's ``gsol`` over the same placement, in turns (A B B A ...):
+    ``rounds`` medians of ``reps`` per-call CUDA-event windows on the
+    planning card each, no readback. With every piece on the planning card,
+    also each route's device time per plan in a CUDA graph (no host
+    enqueue in it)."""
+    import torch
+
+    plan = sol.device
+    pair = [("in_place", sol), ("gather", gsol)]
+    out = {"in_place_ms": [], "gather_ms": []}
+    with torch.cuda.device(plan):
+        for r in range(rounds):
+            for name, s in (pair if r % 2 == 0 else pair[::-1]):
+                out[f"{name}_ms"].append(time_ms(s._enqueue_device_plan,
+                                                 reps=reps))
+        if all(d == plan for d in sol.devices):
+            for name, s in pair:
+                out[f"{name}_graph_ms"] = graph_ms(s._enqueue_device_plan,
+                                                   calls=20)
+    out["in_place_faster_rounds"] = sum(
+        a < b for a, b in zip(out["in_place_ms"], out["gather_ms"]))
+    for name, _ in pair:
+        out[f"{name}_median_ms"] = statistics.median(out[f"{name}_ms"])
+    return out
+
+
+def cold_first_plan(report, device="cuda", ndev=4, servers=10_000) -> dict:
+    """The first planning round across cards in fresh processes
+    (``scripts/cold_plan_torch.py``): with the solver's device state built
+    lazily at the first ingest, as before the engine warmed it, and after
+    ``warm()``. Returns both JSON lines."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "scripts", "cold_plan_torch.py")
+    out = {}
+    for mode in ("lazy", "warm"):
+        proc = subprocess.run(
+            [sys.executable, script, "--mode", mode, "--ndev", str(ndev),
+             "--device", device, "--servers", str(servers)],
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 17: cold_plan_torch.py --mode "
+                                 f"{mode} failed:\n{proc.stderr[-3000:]}")
+        out[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+    lazy, warm = out["lazy"], out["warm"]
+    report(f"phase 17: cold first round across {lazy['placement']} "
+           f"(fresh processes, {servers} servers): built lazily, ingest + "
+           f"plan {lazy['first_round_ms']:.3f} ms (ingest "
+           f"{lazy['cold_ingest_ms']:.3f}, of it the device build "
+           f"{lazy['build_ms']:.3f}; plan {lazy['first_plan_ms']:.3f}); "
+           f"warmed first (build {warm['build_ms']:.3f} ms before the "
+           f"round), {warm['first_round_ms']:.3f} ms (ingest "
+           f"{warm['cold_ingest_ms']:.3f}, plan {warm['first_plan_ms']:.3f})")
     return out
 
 
 def run_across_cards(report, device="cuda", reps=40, scale=None,
-                     nmax=8) -> dict:
+                     nmax=8, cold_servers=10_000) -> dict:
     """Phase 17: the sharded planner with its task table split across the
     cards, one shard per card: plan_bench's 10k row (or ``scale``) over
     min(nmax, cards) shards, ``reps`` steady rounds, every round's
     assignment and pair list equal to the one-card solver's on as many
-    logical shards and to the host tier's across the same cards; kernel A
-    launched on each card, the merge alone and the auction once per device
-    plan, counted; the round split, the per-card and planning-card kernel
-    times; then ``dryrun_multichip(8)`` over the card placement (its engine
-    round plans matches and migrations). On a one-card machine the shards
-    all go to cuda:0 through the same code, their copies same-card copies.
+    logical shards and to the host tier's across the same cards; the merge
+    reading every card's runs in place (route ``in_place`` wherever the
+    planning card reaches every card by peer access), no gather copy;
+    kernel A launched on each card, the merge alone and the auction once
+    per device plan, counted; the round split, the per-card and
+    planning-card kernel times; then the gather route (a solver forced to
+    ``merge_route="gather"``, its rounds equal to the logical solver's)
+    timed the same way in the same run; the cold first round in fresh
+    processes, built lazily and warmed; then ``dryrun_multichip(8)`` over
+    the card placement (its engine round plans matches and migrations). On
+    a one-card machine the shards all go to cuda:0 through the same code.
     ``device="cpu"`` rehearses it at a small ``scale`` over CPU pieces,
     where nothing launches. Returns what the kernel line needs."""
     import torch
@@ -738,26 +898,32 @@ def run_across_cards(report, device="cuda", reps=40, scale=None,
 
     on_card = device == "cuda"
     scale = scale or plan_bench.SCALES[3]
+    link_rate, link_text = None, ""
     if on_card:
         cards = torch.cuda.device_count()
         placement = graft_entry.card_placement(min(nmax, cards)
                                                if cards > 1 else nmax)
-        peers = {i: torch.cuda.can_device_access_peer(i, 0)
-                 for i in range(cards)}
+        peers = {i: torch.cuda.can_device_access_peer(0, i)
+                 for i in range(1, cards)}
+        link_rate, link_text = nvlink_rate(0)
         report(f"phase 17: torch.cuda.device_count() = {cards}; "
-               f"torch.cuda.can_device_access_peer(i, 0): {peers}")
+               f"torch.cuda.can_device_access_peer(0, i): {peers}; "
+               f"nvidia-smi nvlink -s -i 0: cuda:0's links sum to "
+               f"{link_rate and link_rate / 1e9} GB/s each way")
         if cards == 1:
             report(f"phase 17: one card visible: the {nmax} shards all go "
-                   f"to cuda:0 through the per-card code path, so every "
-                   f"gather copy is a same-card copy; the cross-card copies "
-                   f"stay unverified on this machine")
+                   f"to cuda:0 through the per-card code path, so the merge "
+                   f"reads same-card runs; peer reads stay unverified on "
+                   f"this machine")
     else:
         cards, peers, placement = 0, {}, [torch.device("cpu")] * nmax
     n = len(placement)
+    route = "in_place" if all(peers.values()) else "gather"
     report(f"phase 17: placement of {n} shards: "
            f"{[str(d) for d in placement]}")
     kept = {}
     candidates.launches = candidates.merge_launches = auction.launches = 0
+    candidates.gather_copies = 0
     t0 = time.perf_counter()
     plan_bench.run_sweep(
         scales=[scale], reps=reps, devices=placement, device=device,
@@ -766,7 +932,8 @@ def run_across_cards(report, device="cuda", reps=40, scale=None,
     wall = time.perf_counter() - t0
     counts = {"kernel_a": candidates.launches,
               "merge": candidates.merge_launches,
-              "auction": auction.launches}
+              "auction": auction.launches,
+              "gather_copies": candidates.gather_copies}
     sol, row = kept["solver"], kept["row"]
     # the measured solver's device plans, its n-launch warm sweep, the
     # logical twin's one launch of each kernel a plan (it planned the same
@@ -774,25 +941,34 @@ def run_across_cards(report, device="cuda", reps=40, scale=None,
     plans, sweeps = sol.solve_count, row["host_tier_sweeps"]
     want = {"kernel_a": on_card * (n * plans + n + plans + n * sweeps),
             "merge": on_card * plans,
-            "auction": on_card * 2 * plans}
+            "auction": on_card * 2 * plans,
+            "gather_copies": (route == "gather") * n * plans}
     if counts != want or not plans:
         raise AssertionError(f"phase 17: launches {counts}, want {want} "
                              f"({plans} device plans, {sweeps} host-tier "
                              f"sweeps of {n} pieces)")
+    if sol.merge_route != route \
+            or sol.planner_counts()["merge_route"] != route:
+        raise AssertionError(f"phase 17: merge route {sol.merge_route}, "
+                             f"want {route} (peer access {peers})")
     for piece, d in zip(sol._pieces, placement):
         if piece.tab.device != d or piece.rows != sol._Sl:
             raise AssertionError(f"phase 17: a piece of {piece.rows} rows "
                                  f"on {piece.tab.device}, not {sol._Sl} on "
                                  f"{d}")
-    before = (candidates.launches, candidates.merge_launches,
-              auction.launches)
+
+    def tally():
+        return (candidates.launches, candidates.merge_launches,
+                auction.launches, candidates.gather_copies)
+
+    before = tally()
     sol._device_plan()
-    per_plan = tuple(a - b for a, b in zip(
-        (candidates.launches, candidates.merge_launches, auction.launches),
-        before))
-    if per_plan != (on_card * n, on_card * 1, on_card * 1):
+    per_plan = tuple(a - b for a, b in zip(tally(), before))
+    if per_plan != (on_card * n, on_card * 1, on_card * 1,
+                    (route == "gather") * n):
         raise AssertionError(f"phase 17: one device plan launched "
-                             f"{per_plan} (kernel A, merge, auction)")
+                             f"{per_plan} (kernel A, merge, auction, gather "
+                             f"copies)")
     report(f"phase 17: plan_bench {row['servers']} servers x {row['R']} "
            f"parked ({row['parked_reqs']} requesters, "
            f"{row['servers'] * row['K']} task slots), {n} shards of "
@@ -808,29 +984,49 @@ def run_across_cards(report, device="cuda", reps=40, scale=None,
            f"every round's assignment and pairs == the one-card solver on "
            f"{n} logical shards (p50 {row['logical_p50_ms']:.3f} ms) == the "
            f"host tier across the same devices (p50 "
-           f"{row['host_tier_p50_ms']:.3f} ms); launches {counts}; per "
-           f"device plan: kernel A {per_plan[0]}, merge {per_plan[1]}, "
-           f"auction {per_plan[2]}")
-    timed = time_across_cards(sol, candidates) if on_card else {}
+           f"{row['host_tier_p50_ms']:.3f} ms); merge route "
+           f"{sol.merge_route}; launches {counts}; per device plan: kernel "
+           f"A {per_plan[0]}, merge {per_plan[1]}, auction {per_plan[2]}, "
+           f"gather copies {per_plan[3]}")
+    timed = time_across_cards(sol, candidates, link_rate) if on_card else {}
     if timed:
-        report(f"phase 17: device plan across {n} shards: "
-               f"{timed['device_plan_ms']:.4f} ms per call (CUDA events on "
-               f"the planning card, no readback), "
-               f"{timed['device_plan_host_clock_ms']:.3f} ms with its "
-               f"readback on the host clock; kernel A per shard "
-               f"{[round(x, 4) for x in timed['kernel_a_ms']]} ms (events on "
-               f"each card's stream); gather {timed['gather_ms']:.4f} ms; "
-               f"merge alone {timed['merge_ms']:.4f} ms (back to back "
-               f"{timed['merge_ms_back_to_back']:.4f}; bound "
-               f"{timed['merge_bound_ms']:.6f} ms, bytes; plain "
-               f"{timed['merge_plain_ms']:.4f} ms); auction "
-               f"{timed['auction_ms']:.4f} ms")
-    before = (candidates.launches, candidates.merge_launches,
-              auction.launches)
+        report(f"phase 17: {timed_text(timed, n)}")
+    # the gather route in the same run: the runs copied to the planning card
+    gkept = {}
+    plan_bench.run_sweep(
+        scales=[scale], reps=4, devices=placement, device=device,
+        check_logical=True, merge_route="gather",
+        on_row=lambda s, r: gkept.update(solver=s, row=r))
+    gsol = gkept["solver"]
+    gcopies, gplans = gsol.gather_copies, gsol.solve_count
+    if gsol.merge_route != "gather" or gcopies != n * gplans:
+        raise AssertionError(f"phase 17: the gather route solver copied "
+                             f"{gcopies} runs in {gplans} plans "
+                             f"({gsol.merge_route})")
+    timed_gather = (time_across_cards(gsol, candidates, link_rate)
+                    if on_card else {})
+    report(f"phase 17: the gather route beside it: 4 rounds == the logical "
+           f"solver, {gcopies} copies in {gplans} device plans"
+           + (f"; {timed_text(timed_gather, n)}" if timed_gather else ""))
+    routes = compare_routes(sol, gsol) if on_card else {}
+    if routes:
+        graph = (f"; device time in a CUDA graph: in place "
+                 f"{routes['in_place_graph_ms']:.4f} ms, gather "
+                 f"{routes['gather_graph_ms']:.4f} ms"
+                 if "in_place_graph_ms" in routes else "")
+        report(f"phase 17: device plan, the two routes in turns (10 rounds "
+               f"of 20 calls, CUDA events, no readback): in place median "
+               f"{routes['in_place_median_ms']:.4f} ms "
+               f"{[round(x, 4) for x in routes['in_place_ms']]}, gather "
+               f"median {routes['gather_median_ms']:.4f} ms "
+               f"{[round(x, 4) for x in routes['gather_ms']]}; in place "
+               f"faster in {routes['in_place_faster_rounds']} of 10{graph}")
+    del gsol, gkept
+    cold = cold_first_plan(report, device, ndev=min(4, n),
+                           servers=cold_servers)
+    before = tally()[:3]
     dry = graft_entry.dryrun_multichip(8, device=device)
-    dry_launches = tuple(a - b for a, b in zip(
-        (candidates.launches, candidates.merge_launches, auction.launches),
-        before))
+    dry_launches = tuple(a - b for a, b in zip(tally()[:3], before))
     per = len(dry["placement"]) if dry["placement"] else 1
     if dry_launches != (on_card * per * dry["device_plans"],
                         on_card * (dry["placement"] is not None)
@@ -847,8 +1043,34 @@ def run_across_cards(report, device="cuda", reps=40, scale=None,
            f"merge, auction) launches")
     return {"cards": cards, "peer_access": peers,
             "placement": [str(d) for d in placement], "counts": counts,
-            "per_device_plan": per_plan, "row": row, "timed": timed,
-            "dryrun": dry, "wall_s": wall}
+            "merge_route": sol.merge_route, "per_device_plan": per_plan,
+            "row": row, "timed": timed, "timed_gather": timed_gather,
+            "routes_in_turns": routes,
+            "cold_first_round": cold, "nvlink_rate_bytes_per_s": link_rate,
+            "nvlink_report": link_text, "dryrun": dry, "wall_s": wall}
+
+
+def timed_text(timed: dict, n: int) -> str:
+    """One line of :func:`time_across_cards`' figures."""
+    hand = (f"gather {timed['gather_ms']:.4f} ms" if "gather_ms" in timed
+            else f"event record/wait {timed['event_wait_ms']:.4f} ms")
+    nv = timed["merge_bound_nvlink_ms"]
+    return (f"route {timed['merge_route']}, device plan across {n} shards "
+            f"{timed['device_plan_ms']:.4f} ms per call (CUDA events on the "
+            f"planning card, no readback; its launches alone "
+            f"{timed['device_plan_launches_ms']:.4f} ms), "
+            f"{timed['device_plan_host_clock_ms']:.3f} ms with its readback "
+            f"on the host clock; kernel A per shard "
+            f"{[round(x, 4) for x in timed['kernel_a_ms']]} ms (events on "
+            f"each card's stream); {hand}; merge alone "
+            f"{timed['merge_ms']:.4f} ms (back to back "
+            f"{timed['merge_ms_back_to_back']:.4f}; variant "
+            f"{timed['merge_variant']}; bound {timed['merge_bound_ms']:.6f} "
+            f"ms: HBM {timed['merge_bound_hbm_ms']:.6f}, NVLink "
+            f"{'not read' if nv is None else f'{nv:.6f}'}; plain "
+            f"{timed['merge_plain_ms']:.4f} ms; library torch.sort "
+            f"{timed['merge_library_ms']:.4f} ms); auction "
+            f"{timed['auction_ms']:.4f} ms")
 
 
 def keep_solves(every: int = CHECK_EVERY) -> None:
@@ -2475,10 +2697,18 @@ def run_chaos_soak(report, device="cuda", seeds=None) -> dict:
     ``seeds`` (``SOAK_SEEDS``) on ``device``. Every world plans
     (``balancer="tpu"``) with the soak's host threshold 0; its ranks are
     spawned, so each planner reports its counts in ``WorldResult.planner``
-    (``chaos_soak_torch.PLANNERS``), a SIGKILLed master excepted. Each
-    iteration's planners must make device solves, none on the host, one
-    kernel launch each on the card. A failed iteration is the soak's
-    ``CHAOS FAIL`` and fails the phase. Returns the totals."""
+    (``chaos_soak_torch.PLANNERS``), and a SIGKILLed master's kill writes
+    its counts to its fault log (``chaos_soak_torch.KILLED_PLANNERS``).
+    Every planner of an iteration, the killed included, must make no
+    solve on the host and one kernel launch for each device solve on the
+    card (a killed master may die between a solve's count and its launch),
+    and the phase must make device solves. A world whose planner lives
+    through it must make device solves itself; a ``master_kill`` world
+    need not: its master may die in or before its cold first solve and
+    its world drain before the deputy's first round (ROADMAP queue 3; the
+    deputy's planning is held in phases 10 and 13, whose worlds still hold
+    a backlog at the promotion). A failed iteration is the soak's ``CHAOS
+    FAIL`` and fails the phase. Returns the totals."""
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "scripts"))
     import chaos_soak_torch as soak
@@ -2490,6 +2720,7 @@ def run_chaos_soak(report, device="cuda", seeds=None) -> dict:
               "solves_checked": 0, "worlds": 0}
     for seed, what in (seeds or SOAK_SEEDS).items():
         soak.PLANNERS.clear()
+        soak.KILLED_PLANNERS.clear()
         t0 = time.perf_counter()
         try:
             desc = soak.one_iter(seed, device=device)
@@ -2500,15 +2731,26 @@ def run_chaos_soak(report, device="cuda", seeds=None) -> dict:
             raise
         wall = time.perf_counter() - t0
         planners = {r: c for p in soak.PLANNERS for r, c in p.items()}
+        killed = {r: c for p in soak.KILLED_PLANNERS for r, c in p.items()}
         for r, c in planners.items():
             check_planned(f"soak seed {seed} planner rank {r}", c, device,
                           need_solves=False)
-        solves = sum(c["device_solves"] for c in planners.values())
-        launches = sum(c["greedy_sweep_launches"]
-                       for c in planners.values())
-        if desc.get("mode") != "tpu" or solves == 0:
+        for r, c in killed.items():
+            # the solve is counted before its launch: a kill in between
+            # leaves one solve unlaunched
+            if c["host_solves"] or c["solves_wrong"] or device == "cuda" \
+                    and c["greedy_sweep_launches"] not in (
+                        c["device_solves"], c["device_solves"] - 1):
+                raise AssertionError(f"soak seed {seed} killed planner rank "
+                                     f"{r}: planner counts {c}")
+        every = (*planners.values(), *killed.values())
+        solves = sum(c["device_solves"] for c in every)
+        launches = sum(c["greedy_sweep_launches"] for c in every)
+        if desc.get("mode") != "tpu" or (
+                solves == 0 and desc.get("workload") != "master_kill"):
             raise AssertionError(f"soak seed {seed}: {desc}: planners "
-                                 f"{planners}, want device solves > 0")
+                                 f"{planners}, killed {killed}, want device "
+                                 f"solves > 0")
         totals["device_solves"] += solves
         totals["greedy_sweep_launches"] += launches
         totals["solves_checked"] += sum(c["solves_checked"]
@@ -2516,10 +2758,13 @@ def run_chaos_soak(report, device="cuda", seeds=None) -> dict:
         totals["worlds"] += len(soak.PLANNERS)
         report(f"phase 14: seed {seed}, {what}: {desc} in {wall:.3f} s; "
                f"planners by rank: " + ", ".join(
-                   f"{r}: {c['device_solves']} device solves, "
+                   f"{r}{' (killed)' if r in killed else ''}: "
+                   f"{c['device_solves']} device solves, "
                    f"{c['greedy_sweep_launches']} kernel launches, "
                    f"{c['solves_checked']} checked"
-                   for r, c in sorted(planners.items())))
+                   for r, c in sorted({**planners, **killed}.items())))
+    if totals["device_solves"] == 0:
+        raise AssertionError(f"phase 14: no device solve in {totals}")
     report(f"phase 14: {len(seeds or SOAK_SEEDS)} soak iterations on "
            f"{device}, no failure; {totals['device_solves']} device solves, "
            f"{totals['greedy_sweep_launches']} kernel launches, "
@@ -2670,7 +2915,7 @@ def run_bench_rows(report, device="cuda",
     return totals
 
 
-def merge_line(out17: dict, err: int) -> dict:
+def merge_line(out17: dict, err: int, variants: dict) -> dict:
     """The merge alone's entry of the kernels line, from phase 17."""
     timed = out17["timed"]
     return {
@@ -2685,10 +2930,18 @@ def merge_line(out17: dict, err: int) -> dict:
         "plain_ms": timed["merge_plain_ms"],
         "bound_ms": timed["merge_bound_ms"],
         "bound_by": "bytes",
-        "library_ms": None,
-        "keys_in_shared_memory": timed["merge_staged"],
+        "bound_terms_ms": {"hbm": timed["merge_bound_hbm_ms"],
+                           "nvlink": timed["merge_bound_nvlink_ms"]},
+        "library_ms": timed["merge_library_ms"],
+        "library_call": "torch.sort of packed int64 keys [T, n D], cut to D",
+        "merge_route": out17["merge_route"],
+        "gather_copies": out17["counts"]["gather_copies"],
+        "variant": timed["merge_variant"],
+        "variants_checked": variants,
+        "gather_route_17": out17["timed_gather"],
         "across_cards_17": {k: v for k, v in out17.items()
-                            if k not in ("row", "dryrun")},
+                            if k not in ("row", "dryrun", "timed_gather",
+                                         "nvlink_report")},
         "plan_round_17": {k: out17["row"][k] for k in (
             "plan_round_p50_ms", "plan_round_p99_ms", "ingest_p50_ms",
             "ingest_p99_ms", "solve_p50_ms", "solve_p99_ms",
@@ -2712,10 +2965,10 @@ def main_across_cards(report) -> dict:
         if "ptxas" in ln:
             report(f"phase 1: {ln.strip()}")
     t0 = time.perf_counter()
-    err = check_merge(candidates, report)
+    err, variants = check_merge(candidates, report)
     out17 = run_across_cards(report)
     report(f"phase 17: wall {time.perf_counter() - t0:.1f} s")
-    return merge_line(out17, err)
+    return merge_line(out17, err, variants)
 
 
 def main(argv=None) -> int:
@@ -2879,7 +3132,7 @@ def main(argv=None) -> int:
     lap("15")
     counts16 = run_bench_rows(report)
     lap("16")
-    merge_err = check_merge(candidates, report)
+    merge_err, merge_variants = check_merge(candidates, report)
     out17 = run_across_cards(report)
     lap("17")
     report(f"all phases: {laps[-1] - laps[0]:.1f} s")
@@ -2988,7 +3241,7 @@ def main(argv=None) -> int:
             "17_across_cards": out17["counts"]["auction"]},
         "ms_17": out17["timed"]["auction_ms"],
         "at_10k_row": timed10k,
-    }, merge_line(out17, merge_err)]}))
+    }, merge_line(out17, merge_err, merge_variants)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

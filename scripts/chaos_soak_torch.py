@@ -13,7 +13,9 @@ a module-level factory wrapped in :class:`_App`, which a spawned rank can
 unpickle. The same seed draws the same world as ``scripts/chaos_soak.py``
 (``tests/test_torch_soak.py`` holds the two to it). :data:`PLANNERS`
 collects the planners of every ``spawn_world`` world, as
-``WorldResult.planner`` reports them. Its conservation checks bound the
+``WorldResult.planner`` reports them, and :data:`KILLED_PLANNERS` those
+of its SIGKILLed servers (a killed master's planner among them), from
+their fault logs. Its conservation checks bound the
 units missing by ``FAILOVER_LOST`` plus the port's
 ``FAILOVER_RELAYS_UNRESOLVED`` (relays consumed at a home server's death,
 each delivered or lost), which the JAX package counts nowhere.
@@ -74,6 +76,10 @@ from adlb_tpu_torch.workloads import nq
 SETTINGS = {"device": "cuda", "solver_host_threshold": 0}
 #: ``WorldResult.planner`` of every ``spawn_world`` world this process ran
 PLANNERS = []
+#: for each of those worlds, the planner counts of its servers that an
+#: injected fault SIGKILLed ({rank: counts}; a killed rank sends no
+#: ``WorldResult.planner`` entry, so its kill writes them to its fault log)
+KILLED_PLANNERS = []
 
 
 def Config(**kw):
@@ -82,9 +88,44 @@ def Config(**kw):
 
 
 def spawn_world(*args, **kw):
-    res = _spawn_world(*args, **kw)
+    """``spawn_world`` with each rank's fault log in a directory of the
+    world's own (under ``ADLB_FAULT_LOG_DIR`` when it is set, else a
+    temporary one, removed after), from which :data:`KILLED_PLANNERS`
+    reads the killed servers' planner counts."""
+    import shutil
+    import tempfile
+
+    parent = os.environ.get("ADLB_FAULT_LOG_DIR")
+    log_dir = tempfile.mkdtemp(prefix="soak-faults-", dir=parent)
+    os.environ["ADLB_FAULT_LOG_DIR"] = log_dir
+    try:
+        res = _spawn_world(*args, **kw)
+    finally:
+        if parent is None:
+            del os.environ["ADLB_FAULT_LOG_DIR"]
+        else:
+            os.environ["ADLB_FAULT_LOG_DIR"] = parent
     PLANNERS.append(res.planner)
+    KILLED_PLANNERS.append(killed_planners(log_dir))
+    if parent is None:
+        shutil.rmtree(log_dir, ignore_errors=True)
     return res
+
+
+def killed_planners(log_dir) -> dict:
+    """{rank: planner counts} of the planning ranks whose injected kill
+    wrote them to a fault log in ``log_dir`` (``Server._state_at_kill``)."""
+    import glob
+    import json
+
+    out = {}
+    for path in glob.glob(os.path.join(log_dir, "faults-rank*.json")):
+        with open(path) as fh:
+            doc = json.load(fh)
+        counts = (doc.get("state") or {}).get("planner")
+        if counts is not None:
+            out[int(doc["rank"])] = counts
+    return out
 
 
 class _App:

@@ -3,13 +3,16 @@
 prints one line per iteration:
 
     SOAKSEED <seed> <rep> ok|FAIL <wall s> <drawn world or error> <planners>
+        killed <killed planners>
 
 where ``<planners>`` maps each planning rank of the iteration's spawned
 worlds to (device solves, greedy-sweep launches, kept solves checked
-against ``_host_greedy``, kept solves found wrong). Every device solve is
-kept and checked (``ADLB_CHECK_SOLVES=1``); a SIGKILLed master reports
-nothing; set ADLB_FLIGHT_DIR to keep flight records. Run it from the
-repository root:
+against ``_host_greedy``, kept solves found wrong, planning rounds), and
+``<killed planners>`` each SIGKILLed server's planner to (device solves,
+greedy-sweep launches, host solves) as its kill wrote them to its fault
+log (``chaos_soak_torch.KILLED_PLANNERS``). Every device solve is kept and
+checked (``ADLB_CHECK_SOLVES=1``); set ADLB_FLIGHT_DIR to keep flight
+records. Run it from the repository root:
 
     python3 scripts/soak_seeds_torch.py [--device cuda|cpu] SEED:REPS ...
 """
@@ -36,6 +39,7 @@ def main(argv) -> int:
         seed, reps = map(int, arg.split(":"))
         for rep in range(reps):
             soak.PLANNERS.clear()
+            soak.KILLED_PLANNERS.clear()
             t0 = time.perf_counter()
             try:
                 desc, ok = soak.one_iter(seed, device=device), "ok"
@@ -44,11 +48,15 @@ def main(argv) -> int:
                             .replace("\n", " | ")), "FAIL"
                 failed += 1
             planners = {r: (c["device_solves"], c["greedy_sweep_launches"],
-                            c["solves_checked"], c["solves_wrong"])
+                            c["solves_checked"], c["solves_wrong"],
+                            c["rounds"])
                         for p in soak.PLANNERS for r, c in p.items()}
+            killed = {r: (c["device_solves"], c["greedy_sweep_launches"],
+                          c["host_solves"])
+                      for p in soak.KILLED_PLANNERS for r, c in p.items()}
             print("SOAKSEED", seed, rep, ok,
                   round(time.perf_counter() - t0, 3), desc, planners,
-                  flush=True)
+                  "killed", killed, flush=True)
     return 1 if failed else 0
 
 

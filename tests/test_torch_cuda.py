@@ -17,11 +17,17 @@ to the plain version and to a numpy twin on fuzzed instances (truncated
 types, empty types, repeated ranks, one row per shard, 16 shards, keys past
 shared memory), laid out as the solver's strided table; a device plan is
 one candidates launch and one auction launch; a refused launch raises.
-The merge alone bit-equal to its plain version and numpy twin; the sharded
+The merge alone, in place over separately allocated runs (its cluster
+variant, and past eight runs its staged and device-memory variants; over
+peer pointers on two or more cards), bit-equal to its plain version and
+numpy twin; peer access enabled twice; a refused peer enable or launch
+raises; back-to-back device plans without readback while the tables change
+(the merged event that holds each card's next kernel A); the sharded
 planner split across the cards (one shard per card, or 8 on cuda:0 when
 one is visible) at the 10k row equal to the one-card logical shards and the
-host tier, a planner whose planning card is cuda:1 (two cards), and
-``PlanEngine(use_mesh=True)`` with one shard per card. The graft entry
+host tier, merged in place with no gather copy, a planner whose planning
+card is cuda:1 (two cards), and ``PlanEngine(use_mesh=True)`` with one
+shard per card, built when the engine is. The graft entry
 (``graft_entry``) runs on the card, its dry run over the card placement.
 
 Process worlds and the native plane: ``spawn_world(start_method="fork")``
@@ -435,28 +441,124 @@ def _sorted_runs(rng, n, T, D, live):
             np.take_along_axis(g, o, 2).astype(np.int32))
 
 
+def _runs_on(cp, cg, devices):
+    """Run q as its own [2, T, D] tensor on ``devices[q % len(devices)]``."""
+    return [torch.from_numpy(np.stack([cp[q], cg[q]])).to(
+        devices[q % len(devices)]) for q in range(cp.shape[0])]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,T,D,live", [
     (1, 8, 545, 0.6), (2, 8, 545, 0.3), (3, 24, 13, 0.5), (8, 8, 545, 0.5),
-    (3, 8, 4096, 0.7), (8, 8, 4096, 0.8)])
+    (3, 8, 4096, 0.7), (8, 8, 4096, 0.8), (12, 8, 545, 0.5),
+    (9, 8, 4096, 0.8)])
 def test_merge_alone_matches_plain_and_numpy(card, n, T, D, live):
-    """The merge alone on a gathered [n, 2, T, D] buffer: bit-equal to its
-    plain version and to ``_merge_shard_major`` cut to D, twice; keys in
-    shared memory, or in device memory past it (8 runs of 4096)."""
+    """The merge alone in place over n separately allocated runs on one
+    card: bit-equal to its plain version and to ``_merge_shard_major`` cut
+    to D, twice; one cluster of n blocks a type up to 8 runs, past that one
+    block a type with the keys in shared memory, or in device memory past
+    it (9 runs of 4096)."""
     cp, cg = _sorted_runs(np.random.default_rng(n * 100 + D), n, T, D, live)
-    buf = torch.from_numpy(np.stack([cp, cg], axis=1)).to(card)
+    runs = _runs_on(cp, cg, [card])
     want = [x[:, :D] for x in dist._merge_shard_major(cp, cg)]
-    plain = candidates.merge_runs_torch(buf[:, 0], buf[:, 1], D)
-    work = candidates.MergeWorkspace(n, T, D, card)
-    assert work.staged == (8 * (n + 1) * D <= 227 * 1024)
+    plain = candidates.merge_runs_torch(runs, D)
+    work = candidates.MergeWorkspace(runs, D, card)
+    assert work.variant == ("cluster" if n <= 8 else "staged"
+                            if 8 * (n + 1) * D <= 227 * 1024
+                            else "device_memory")
     for _ in range(2):
         before = candidates.merge_launches
-        got = candidates.merge_runs(buf[:, 0], buf[:, 1], D, work=work)
+        got = candidates.merge_runs(runs, D, work=work)
         torch.cuda.synchronize()
         assert candidates.merge_launches == before + 1
         for g, p_, w in zip(got, plain, want):
             assert torch.equal(g, p_)
             np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,D", [(2, 545), (4, 545), (8, 545), (4, 4096),
+                                 (12, 545)])
+def test_merge_in_place_over_peer_pointers(card, n, D):
+    """Two or more cards: the runs spread over every card, merged on cuda:0
+    through peer pointers, bit-equal to the plain version on a gathered
+    copy and to the numpy twin."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two cards")
+    devices = [torch.device("cuda", i) for i in range(cards)]
+    cp, cg = _sorted_runs(np.random.default_rng(40 + n + D), n, 8, D, 0.6)
+    runs = _runs_on(cp, cg, devices)
+    work = candidates.MergeWorkspace(runs, D, devices[0])
+    got = [x.cpu() for x in candidates.merge_runs(runs, D, work=work)]
+    plain = candidates.merge_runs_torch([r.to(devices[0]) for r in runs], D)
+    want = [x[:, :D] for x in dist._merge_shard_major(cp, cg)]
+    for g, p_, w in zip(got, plain, want):
+        assert torch.equal(g, p_.cpu())
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.cuda
+def test_peer_access_enabled_twice_is_harmless_and_a_refusal_raises(card):
+    """Enabling peer access that is already on (by an earlier call, or by
+    PyTorch's own peer copy) succeeds; asking the CUDA runtime for what it
+    refuses (a card's access to itself) raises."""
+    with pytest.raises(RuntimeError, match="peer access"):
+        candidates.enable_peer("cuda:0", "cuda:0")
+    if torch.cuda.device_count() < 2:
+        return
+    torch.ones(4, device="cuda:1").to("cuda:0")  # PyTorch's peer copy
+    for _ in range(2):
+        candidates.enable_peer("cuda:0", "cuda:1")
+        candidates.enable_peer("cuda:1", "cuda:0")
+
+
+@pytest.mark.cuda
+def test_a_refused_merge_launch_raises(card):
+    runs = _runs_on(*_sorted_runs(np.random.default_rng(5), 2, 4, 8, 0.5),
+                    [card])
+    work = candidates.MergeWorkspace(runs, 8, card)
+    work.shape = (2, 4, 0)  # a D the kernel refuses
+    with pytest.raises(RuntimeError, match="merge launch failed"):
+        work.launch()
+
+
+@pytest.mark.cuda
+def test_back_to_back_device_plans_without_readback(card):
+    """Across the cards (8 pieces on cuda:0 with one card): device plans
+    enqueued back to back with no readback while the pieces' tables change
+    between them, each result copied on the planning stream; every one
+    equal to the plan of the same state over CPU pieces. With several
+    cards this holds each card's next kernel A behind the merge that reads
+    its runs."""
+    placement = _card_placement()
+    n = len(placement)
+    kw = dict(types=(1, 2, 3), max_tasks_per_server=16, max_requesters=8,
+              servers_per_shard=4)
+    sol = dist.DistributedAssignmentSolver(devices=placement, **kw)
+    ref = dist.DistributedAssignmentSolver(devices=["cpu"] * n,
+                                           device="cpu", **kw)
+    assert sol.merge_route == "in_place" or sol.merge_route is None
+    rng = np.random.default_rng(11)
+    snaps = {100 + s: {"tasks": [], "reqs": [(s * 10 + i, 1, [1 + i % 3])
+                                             for i in range(4)]}
+             for s in range(4 * n)}
+    got, want = [], []
+    for it in range(12):
+        for s in rng.choice(sorted(snaps), size=n, replace=False).tolist():
+            snaps[s]["tasks"] = sorted(
+                ((it * 1000 + s * 16 + i, int(rng.integers(1, 4)),
+                  int(rng.integers(-50, 50)), 8) for i in range(16)),
+                key=lambda t: -t[2])
+        sol.ingest(snaps)
+        got.append(sol._enqueue_device_plan().clone())
+        ref.solve(snaps, None)
+        want.append(ref.last_assigned.copy())
+    assert sol.merge_route == "in_place" and sol.gather_copies == 0
+    for d in set(placement):
+        torch.cuda.synchronize(d)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy()[:, :sol.C], w)
 
 
 def _card_placement():
@@ -484,11 +586,14 @@ def test_sharded_planner_across_cards_at_the_10k_row(card):
     assert [p.tab.device for p in sol._pieces] == placement
     assert all(p.rows == 10_000 // len(placement) for p in sol._pieces)
     before = (candidates.launches, candidates.merge_launches,
-              auction.launches)
+              auction.launches, candidates.gather_copies)
     sol._device_plan()
     assert (candidates.launches - before[0],
             candidates.merge_launches - before[1],
-            auction.launches - before[2]) == (len(placement), 1, 1)
+            auction.launches - before[2],
+            candidates.gather_copies - before[3]) == (len(placement), 1, 1, 0)
+    assert sol.merge_route == "in_place" and sol.gather_copies == 0
+    assert sol.planner_counts()["merge_route"] == "in_place"
 
 
 @pytest.mark.cuda
@@ -537,6 +642,9 @@ def test_plan_engine_shards_over_every_card(card):
     assert sol.devices == [torch.device("cuda", i) for i in range(cards)]
     assert sol.device == torch.device("cuda", 0)
     assert sol._Sl == -(-10_000 // cards)
+    # built with the engine: every piece on its card, the merge in place
+    assert [p.tab.device for p in sol._pieces] == sol.devices
+    assert sol.merge_route == "in_place" and sol._merge_work is not None
 
 
 def _planned_cfg(**kw):

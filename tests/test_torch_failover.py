@@ -898,3 +898,56 @@ def test_disconnected_server_with_nothing_to_send_exits():
     loop.join(timeout=10)
     assert not loop.is_alive()
     assert srv.died and srv.done
+
+
+# --------------------------------- what a SIGKILLed planner leaves behind
+
+
+class _Killed(Exception):
+    pass
+
+
+@pytest.mark.parametrize("planned", [True, False])
+def test_an_injected_kill_logs_the_servers_planner_counts(planned, tmp_path,
+                                                          monkeypatch):
+    """A server behind a fault-injecting endpoint hands its plan a state
+    callable; the injected kill writes its planner's counts (None when it
+    never planned) to the rank's fault log before the process dies, since
+    a SIGKILLed rank sends no ``WorldResult.planner`` entry."""
+    import json
+    import os
+
+    from adlb_tpu_torch.runtime import faults
+
+    world = WorldSpec(nranks=5, nservers=3, types=(T,))
+    plan = faults.FaultPlan({"seed": 3, "kill_at_frame": {2: 1},
+                             "log_dir": str(tmp_path)}, 2)
+    ep = faults.FaultyEndpoint(InProcFabric(5).endpoint(2), plan)
+    srv = Server(world, Config(device="cpu", on_server_failure="failover"),
+                 ep)
+    assert plan.state == srv._state_at_kill
+    if planned:
+        srv._solver = solve.AssignmentSolver(types=(T,), max_tasks=8,
+                                             max_requesters=8, device="cpu")
+        srv._solver.device_solve_count = 3
+    monkeypatch.setattr(os, "kill", lambda pid, sig: None)
+
+    def exit_(code):
+        raise _Killed(code)
+
+    monkeypatch.setattr(os, "_exit", exit_)
+    with pytest.raises(_Killed):
+        ep.send(3, Msg(tag=Tag.SS_REPL, src=2))
+    doc = json.loads((tmp_path / "faults-rank2.json").read_text())
+    assert doc["events"][0][1] == faults.KILL
+    got = doc["state"]["planner"]
+    if planned:
+        assert got["device_solves"] == 3 and got["host_solves"] == 0
+    else:
+        assert got is None
+
+
+def test_a_plain_endpoint_gets_no_kill_state():
+    world = WorldSpec(nranks=5, nservers=3, types=(T,))
+    srv = Server(world, Config(device="cpu"), InProcFabric(5).endpoint(2))
+    assert srv._state_at_kill() == {"planner": None}

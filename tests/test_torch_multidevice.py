@@ -3,10 +3,12 @@
 ``DistributedAssignmentSolver(devices=["cpu"] * n)`` keeps one piece of the
 table per device and runs every step of the code that serves cards: each
 changed row uploads to its owner's piece, each piece makes its own shard's
-candidates, the device tier gathers every piece's [2, T, D] lists onto the
-planning device and merges them with the merge alone (``merge_runs``), the
-host tier reads every piece back and merges on the host. n = 2, 3 and 8
-stand for the number of cards.
+candidates, the device tier merges every piece's [2, T, D] lists where they
+lie with the merge alone (``merge_runs`` over the list of runs; route
+``in_place``, no gather copy), or copies them to the planning device first
+on the ``gather`` route, the host tier reads every piece back and merges on
+the host. n = 2, 3 and 8 stand for the number of cards. An engine that
+shards across devices builds its pieces when it is built.
 
 Oracles, on the same numpy state: the JAX package's pipeline built from its
 own functions (``_shard_candidates`` per shard, called without
@@ -344,6 +346,33 @@ def test_parity_sharded_solver_multi_job(n):
 # ---- the pieces, the gather and the merge alone ----
 
 
+def _sorted_runs(rng, n, T, D, share=None):
+    """n runs [n, T, D] as kernel A leaves them: each sorted (prio desc,
+    gid asc) and padded, a random live length (at most ``share`` of D when
+    given), many ties in prio broken by gid, run 0's first pair held by
+    every other run too."""
+    cp = np.full((n, T, D), NEG, np.int32)
+    cg = np.full((n, T, D), I32MAX, np.int32)
+    for q in range(n):
+        for t in range(T):
+            top = D if share is None else int(share * D)
+            live = int(rng.integers(0, top + 1))
+            p = rng.integers(-3, 3, live)
+            g = rng.integers(0, 4 * D, live)
+            if q and live and cp[0, t, 0] > NEG:
+                p[0], g[0] = cp[0, t, 0], cg[0, t, 0]  # run 0 holds it
+            o = np.lexsort((g, -p))
+            cp[q, t, :live], cg[q, t, :live] = p[o], g[o]
+    return cp, cg
+
+
+def _separate_runs(cp, cg):
+    """Each run in its own [2, T, D] tensor (separately allocated, as the
+    pieces' candidate lists are)."""
+    return [torch.from_numpy(np.stack([cp[q], cg[q]])) for q in
+            range(cp.shape[0])]
+
+
 @pytest.mark.parametrize("n", [1, 2, 3, 8])
 def test_merge_alone_equals_merge_shard_major_cut_to_d(n):
     """The merge alone's plain version against the JAX package's
@@ -352,34 +381,57 @@ def test_merge_alone_equals_merge_shard_major_cut_to_d(n):
     different runs; dispatched on CPU tensors by ``merge_runs``."""
     rng = np.random.default_rng(50 + n)
     for T, D in ((1, 1), (3, 7), (8, 545)):
-        cp = np.full((n, T, D), NEG, np.int32)
-        cg = np.full((n, T, D), I32MAX, np.int32)
-        for q in range(n):
-            for t in range(T):
-                live = int(rng.integers(0, D + 1))
-                p = rng.integers(-3, 3, live)
-                g = rng.integers(0, 4 * D, live)
-                if q and live and cp[0, t, 0] > NEG:
-                    p[0], g[0] = cp[0, t, 0], cg[0, t, 0]  # run 0 holds it
-                o = np.lexsort((g, -p))
-                cp[q, t, :live], cg[q, t, :live] = p[o], g[o]
+        cp, cg = _sorted_runs(rng, n, T, D)
         want_p, want_g = ref._merge_shard_major(cp, cg)
-        gp, gg = candidates.merge_runs(torch.from_numpy(cp),
-                                       torch.from_numpy(cg), D)
+        gp, gg = candidates.merge_runs(_separate_runs(cp, cg), D)
         assert gp.shape == (T, D) and gp.dtype == torch.int32
         assert np.array_equal(gp.numpy(), want_p[:, :D])
         assert np.array_equal(gg.numpy(), want_g[:, :D])
 
 
+@pytest.mark.parametrize("share", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("T,D", [(1, 1), (3, 7), (8, 545)])
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+def test_merge_over_separate_runs_equals_stacked_and_shard_major(n, T, D,
+                                                                 share):
+    """``merge_runs`` and ``merge_runs_torch`` over a list of separately
+    allocated runs (each [2, T, D], one a strided view of a larger buffer)
+    equal the stacked form (one [n, T, D] merge, ``_merge_candidates``, cut
+    to D) and the JAX package's ``_merge_shard_major`` cut to D; the live
+    share of each run at most ``share``."""
+    rng = np.random.default_rng(7000 + 100 * n + 10 * T + int(10 * share))
+    cp, cg = _sorted_runs(rng, n, T, D, share)
+    runs = _separate_runs(cp, cg)
+    if n > 1:  # run 1 as a view into a bigger allocation, like a piece's
+        big = torch.full((2, 3, T, D), 5, dtype=torch.int32)
+        big[:, 1] = runs[1]
+        runs[1] = big[:, 1]
+    want = [x[:, :D] for x in ref._merge_shard_major(cp, cg)]
+    sp, sg = candidates._merge_candidates(torch.from_numpy(cp),
+                                          torch.from_numpy(cg))
+    stacked = (sp[:, :D], sg[:, :D])
+    for got in (candidates.merge_runs(runs, D),
+                candidates.merge_runs_torch(runs, D)):
+        for g, s_, w in zip(got, stacked, want):
+            assert g.shape == (T, D) and g.dtype == torch.int32
+            assert torch.equal(g, s_)
+            assert np.array_equal(g.numpy(), w)
+
+
 def test_merge_alone_refuses_what_the_kernel_does_not_take():
-    cp = torch.zeros((2, 3, 5), dtype=torch.int32)
+    run = torch.zeros((2, 3, 5), dtype=torch.int32)
     with pytest.raises(ValueError, match="int32"):
-        candidates.merge_runs(cp.long(), cp.long(), 5)
-    with pytest.raises(ValueError, match=r"\[n, T, D=4\]"):
-        candidates.merge_runs(cp, cp, 4)
-    with pytest.raises(ValueError, match="strided alike"):
-        candidates.merge_runs(cp[:, :, :], cp.transpose(1, 2)
-                              .contiguous().transpose(1, 2), 5)
+        candidates.merge_runs([run.long(), run.long()], 5)
+    with pytest.raises(ValueError, match=r"\[2, T=3, D=4\]"):
+        candidates.merge_runs([run, run], 4)
+    with pytest.raises(ValueError, match=r"\[2, T=3, D=5\]"):
+        candidates.merge_runs([run, torch.zeros((2, 4, 5),
+                                                dtype=torch.int32)], 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        candidates.merge_runs([run, run.transpose(1, 2).contiguous()
+                               .transpose(1, 2)], 5)
+    with pytest.raises(ValueError, match="at least one run"):
+        candidates.merge_runs_torch([], 5)
 
 
 @pytest.mark.parametrize("auction", ["device", "host"])
@@ -432,9 +484,59 @@ def test_a_device_plan_is_one_candidates_call_per_piece_and_one_merge(
     snaps = {100 + s: {"tasks": [(s + 1, 1 + s % 2, s, 8)],
                        "reqs": [(s, 1, None)] if s % 3 == 0 else []}
              for s in range(6)}
+    copies = candidates.gather_copies
     assert sol.solve(snaps, None)
     assert calls == {"shard": [1, 1, 1], "merge": 1, "auction": 1}
-    assert sol._gathered.shape == (3, 2, sol.T, sol.D)
+    assert sol.merge_route == "in_place" and sol._gathered is None
+    assert sol.gather_copies == 0 and candidates.gather_copies == copies
+    counts = sol.planner_counts()
+    assert (counts["merge_route"], counts["gather_copies"],
+            counts["device_plans"]) == ("in_place", 0, 1)
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_the_gather_route_plans_what_the_in_place_route_plans(n):
+    """A solver forced to the ``gather`` route (the route of a placement
+    without peer access) over n CPU pieces: every round of plan_bench's
+    first row equal to the host tier and the logical shards, the runs
+    copied once a device plan into its [n, 2, T, D] buffer, reported as
+    such; the default route copies nothing."""
+    kept = []
+    copies = candidates.gather_copies
+    plan_bench.run_sweep(scales=[(64, 16, 16)], reps=4, devices=["cpu"] * n,
+                         device="cpu", check_host=True, check_logical=True,
+                         merge_route="gather",
+                         on_row=lambda s, r: kept.append(s))
+    sol = kept[0]
+    assert sol.merge_route == "gather"
+    assert sol._gathered.shape == (n, 2, sol.T, sol.D)
+    assert sol.gather_copies == n * sol.solve_count > 0
+    assert candidates.gather_copies - copies == sol.gather_copies
+    assert sol.planner_counts()["merge_route"] == "gather"
+    with pytest.raises(ValueError, match="merge_route"):
+        _multi(n, max_tasks_per_server=4, max_requesters=2,
+               merge_route="peer")
+
+
+def test_plan_engine_across_pieces_builds_them_at_construction():
+    """``PlanEngine(use_mesh=True)`` with a placement builds the sharded
+    solver's pieces, its merge and its requester tables when the engine is
+    built, as the JAX engine builds its mesh: no planning round pays for
+    them. A bare solver stays unbuilt until :meth:`warm` or its first
+    ingest."""
+    eng = PlanEngine(types=(1, 2), max_tasks=8, max_requesters=4,
+                     use_mesh=True, nservers=6, device="cpu",
+                     devices=["cpu"] * 3)
+    sol = eng.solver
+    assert isinstance(sol, DistributedAssignmentSolver)
+    assert [p.tab.device.type for p in sol._pieces] == ["cpu"] * 3
+    assert sol._dev_req is not None and sol.merge_route == "in_place"
+    bare = _multi(3, types=(1, 2), max_tasks_per_server=8, max_requesters=4)
+    assert bare._pieces is None and bare.merge_route is None
+    bare.warm()
+    pieces = bare._pieces
+    bare.warm()
+    assert bare._pieces is pieces and len(pieces) == 3
 
 
 def test_mixed_or_mismatched_placements_raise():

@@ -164,3 +164,42 @@ def test_soak_iteration_passes(seed, soak):
     # threshold is 0
     counts = [c for p in soak.PLANNERS for c in p.values()]
     assert all(c["host_solves"] == 0 for c in counts), counts
+
+
+@pytest.mark.parametrize("parent", [False, True])
+def test_the_soak_reads_its_killed_planners_from_the_fault_logs(
+        parent, soak, tmp_path, monkeypatch):
+    """The soak's ``spawn_world`` gives each world a fault-log directory of
+    its own (under ``ADLB_FAULT_LOG_DIR`` when it is set, else a temporary
+    one, removed after) and records the planner counts that its killed
+    servers' kills wrote there, beside ``WorldResult.planner``."""
+    from types import SimpleNamespace
+
+    if parent:
+        monkeypatch.setenv("ADLB_FAULT_LOG_DIR", str(tmp_path))
+    else:
+        monkeypatch.delenv("ADLB_FAULT_LOG_DIR", raising=False)
+    seen = []
+
+    def world(*args, **kw):
+        d = os.environ["ADLB_FAULT_LOG_DIR"]
+        seen.append(d)
+        for rank, state in ((5, {"planner": {"device_solves": 2}}),
+                            (6, {"planner": None}), (0, None)):
+            doc = {"rank": rank, "seed": 1, "events": []}
+            if state is not None:
+                doc["state"] = state
+            with open(os.path.join(d, f"faults-rank{rank}.json"), "w") as f:
+                json.dump(doc, f)
+        return SimpleNamespace(planner={6: {"device_solves": 1}})
+
+    monkeypatch.setattr(soak, "_spawn_world", world)
+    monkeypatch.setattr(soak, "PLANNERS", [])
+    monkeypatch.setattr(soak, "KILLED_PLANNERS", [])
+    soak.spawn_world(3, 4, [1])
+    assert soak.PLANNERS == [{6: {"device_solves": 1}}]
+    assert soak.KILLED_PLANNERS == [{5: {"device_solves": 2}}]
+    assert os.environ.get("ADLB_FAULT_LOG_DIR") == (
+        str(tmp_path) if parent else None)
+    assert os.path.dirname(seen[0]) == str(tmp_path) if parent \
+        else not os.path.exists(seen[0])
