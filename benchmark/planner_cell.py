@@ -1,0 +1,226 @@
+"""A planner cell: the sharded planner (``DistributedAssignmentSolver``)
+driven in a closed loop, one round after another, by the churn traffic.
+
+A round runs from the call of ``ingest`` to the pairs that ``plan`` returns;
+the harness's own data plane between rounds (bursts, the plan consumed,
+requesters re-parked, the copies kept for the check) lies outside it.
+``plan_round_ms`` is the rounds' summed time over their number.
+"""
+
+from __future__ import annotations
+
+import gc
+import time
+
+import numpy as np
+
+from benchmark import reference
+from benchmark.churn import Churn
+from benchmark.common import Spans
+
+
+def build_solver(conf: dict, device: str):
+    from adlb_tpu_torch.balancer.distributed import DistributedAssignmentSolver
+
+    S, ns = conf["servers"], conf["nshards"]
+    return DistributedAssignmentSolver(
+        conf["types"], conf["max_tasks"], conf["max_requesters"],
+        nshards=ns, rounds=conf["auction_rounds"],
+        servers_per_shard=-(-S // ns), cand_width=conf["cand_width"],
+        auction=conf["auction"], device=device)
+
+
+class ControlPlanner:
+    """The reference in the planner's place, with the priorities coarsened
+    (``prio >> shift``): the control, which must come out not correct."""
+
+    def __init__(self, conf: dict, shift: int) -> None:
+        self.conf, self.shift = conf, shift
+        self.last_ingest_ms = self.last_solve_ms = self.last_extract_ms = 0.0
+        self.last_assigned = None
+        self._snaps = None
+
+    def ingest(self, snaps: dict) -> int:
+        self._snaps = {s: {"tasks": v["tasks"], "reqs": v["reqs"]}
+                       for s, v in snaps.items()}
+        return 0
+
+    def plan(self) -> list:
+        c = self.conf
+        pairs, self.last_assigned = reference.plan_from_snapshots(
+            self._snaps, c["types"], c["max_tasks"], c["max_requesters"],
+            c["servers"], c["auction_rounds"], c["cand_width"], self.shift)
+        return pairs
+
+
+def run(conf: dict, traffic: dict, seed: int, seconds: float, trace: bool,
+        t_process: float, device: str = "cuda", make_solver=None,
+        log=print) -> dict:
+    """One run of the cell. ``make_solver(conf)`` replaces the program's
+    solver (the control, or a test's broken one). Returns the run's record
+    for the result line and the readers."""
+    import torch
+
+    spans = Spans(trace)
+    t = time.perf_counter()
+    solver = (make_solver or (lambda c: build_solver(c, device)))(conf)
+    if hasattr(solver, "warm"):
+        solver.warm()
+    t_gen = time.perf_counter()
+    gen = Churn(traffic, conf["servers"], conf["max_tasks"],
+                conf["max_requesters"], conf["types"], seed)
+    t_cold = time.perf_counter()
+    log(f"set-up: {t - t_process:.3f} s to the solver, its build "
+        f"{t_gen - t:.3f} s, the cold pool {t_cold - t_gen:.3f} s")
+    t = time.perf_counter()
+    solver.ingest(gen.snaps)
+    solver.plan()
+    cold_ms = (time.perf_counter() - t) * 1e3
+    for _ in range(int(traffic["warm_rounds"])):
+        gen.bursts()
+        solver.ingest(gen.snaps)
+        gen.consume(solver.plan())
+    if device == "cuda":
+        torch.cuda.synchronize()
+    # the 1,000,000 parked requesters are the harness's and the solver's
+    # long-lived heap: moved out of the collector's reach, so a full
+    # collection over them does not land in a round at random
+    t = time.perf_counter()
+    gc.collect()
+    gc.freeze()
+    log(f"set-up: cold ingest + plan {cold_ms:.1f} ms, "
+        f"{traffic['warm_rounds']} warm rounds, collection "
+        f"{time.perf_counter() - t:.3f} s")
+    C_ref = reference.slot_sizes(conf["cand_width"], conf["auction_rounds"],
+                                 conf["servers"] * conf["max_requesters"])[0]
+    # the rounds checked: a uniform sample of the window's rounds drawn
+    # from the seed (a reservoir of ``check_most``, so the end of the window
+    # counts as much as its start), and the window's last round
+    check_rng = np.random.default_rng([seed % (1 << 63), 1])
+    most = int(traffic["check_most"])
+    tail_s = float(traffic["check_tail_s"])
+    checks: list = []
+    last = None
+    rounds: list = []
+    tracer = None
+    if trace:
+        from benchmark.common import DeviceTrace
+        import tempfile
+
+        tracer = DeviceTrace(tempfile.gettempdir())
+        if hasattr(solver, "_device_plan"):
+            inner = solver._device_plan
+
+            def device_plan():
+                t0 = time.perf_counter()
+                out = inner()
+                spans.span("plan", t0, time.perf_counter())
+                return out
+
+            solver._device_plan = device_plan
+    if tracer is not None:
+        tracer.start()
+    gc_before = [g["collections"] for g in gc.get_stats()]
+    t_window = time.perf_counter()
+    setup_s = t_window - t_process
+    t_end = t_window + seconds
+    while True:
+        t_dp = time.perf_counter()
+        if t_dp >= t_end:
+            break
+        gen.bursts()
+        i = len(rounds)
+        slot = i if i < most else int(check_rng.integers(0, i + 1))
+        sample, final = slot < most, t_dp >= t_end - tail_s
+        frozen = gen.frozen(C_ref) if sample or final else None
+        t0 = time.perf_counter()
+        spans.span("data_plane (benchmark)", t_dp, t0)
+        solver.ingest(gen.snaps)
+        t1 = time.perf_counter()
+        pairs = solver.plan()
+        t2 = time.perf_counter()
+        spans.span("ingest", t0, t1)
+        spans.span("extract", t1, t2)
+        rec = [t0, t2 - t0, solver.last_ingest_ms, solver.last_solve_ms,
+               solver.last_extract_ms, len(pairs)]
+        if trace:
+            asg = solver.last_assigned
+            rec.append(None if asg is None else (asg >= 0).sum(axis=1))
+        rounds.append(rec)
+        if sample or final:
+            asg = solver.last_assigned
+            item = (i, frozen, list(pairs),
+                    None if asg is None else np.array(asg))
+            if sample:
+                if i < most:
+                    checks.append(item)
+                else:
+                    checks[slot] = item
+            if final:
+                last = item
+        t3 = time.perf_counter()
+        gen.consume(pairs)
+        spans.span("data_plane (benchmark)", t3, time.perf_counter())
+    t_closed = time.perf_counter()
+    gc_stats = [g["collections"] for g in gc.get_stats()]
+    trace_out = None
+    if tracer is not None:
+        tracer.stop()
+        trace_out = tracer.reduce(spans.items, t_window, t_closed)
+    gc.unfreeze()
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    nshards_rows = getattr(solver, "S", conf["servers"])
+    C = getattr(solver, "C", None)
+    D = getattr(solver, "D", None)
+    del solver
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    if last is not None and all(c[0] != last[0] for c in checks):
+        checks.append(last)
+    checks.sort(key=lambda c: c[0])
+    t_ref = time.perf_counter()
+    wrong, details = 0, []
+    for i, frozen, pairs, asg in checks:
+        ref_pairs, ref_asg = reference.plan_from_snapshots(
+            frozen, conf["types"], conf["max_tasks"], conf["max_requesters"],
+            conf["servers"], conf["auction_rounds"], conf["cand_width"])
+        bad = pairs != ref_pairs or (ref_asg is not None and (
+            asg is None or asg.shape != ref_asg.shape
+            or not np.array_equal(asg, ref_asg)))
+        if bad:
+            wrong += 1
+            if len(details) < 3:
+                details.append(f"round {i} of the window: {len(pairs)} "
+                               f"pairs, reference {len(ref_pairs)}")
+    ref_s = time.perf_counter() - t_ref
+    for d in details:
+        log(d)
+    if checks:
+        log(f"rounds checked: {len(checks)} of {len(rounds)}, from round "
+            f"{checks[0][0]} to round {checks[-1][0]}")
+    fifths = [[] for _ in range(5)]
+    for r in rounds:
+        fifths[min(int(5 * (r[0] - t_window) / seconds), 4)].append(r[1])
+    log("rounds by fifth of the window: " + ", ".join(
+        f"{1e3 * sum(f) / len(f):.2f} ms ({len(f)})" for f in fifths if f)
+        + f"; collections in the window by generation "
+        f"{[a - b for a, b in zip(gc_stats, gc_before)]}")
+    return {"kind": "planner", "setup_s": setup_s, "cold_ms": cold_ms,
+            "seconds": seconds, "window_s": t_closed - t_window,
+            "rounds": rounds, "checked": len(checks),
+            "checked_rounds": [c[0] for c in checks], "rounds_wrong": wrong,
+            "reference_s": ref_s, "memory_peak_bytes": peak,
+            "trace": trace_out, "conf": conf, "table_rows": nshards_rows,
+            "C": C, "D": D}
+
+
+def end_to_end(run: dict) -> dict:
+    r = run["rounds"]
+    return {"plan_round_ms": 1e3 * sum(x[1] for x in r) / len(r)
+            if r else None}
+
+
+def compared(run: dict) -> dict:
+    """The numbers that decide ``correct``: (value, limit, rule)."""
+    return {"rounds_wrong": (run["rounds_wrong"], 0, "<="),
+            "rounds_checked": (run["checked"], 8, ">=")}
