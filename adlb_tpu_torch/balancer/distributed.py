@@ -84,7 +84,6 @@ every round.
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -98,6 +97,7 @@ from adlb_tpu_torch.balancer.candidates import (  # noqa: F401  (plain versions)
 from adlb_tpu_torch.balancer.jobdim import bias_vector, expand_types
 from adlb_tpu_torch.balancer.solve import (
     _I32MAX, _NEG, _PRIO_CLIP, check_device)
+from adlb_tpu_torch.runtime.trace import clock
 
 
 def _reqwin(req_mask, req_valid, T: int, C: int, perm=None):
@@ -282,6 +282,64 @@ def _merge_shard_major(cp, cg):
     )
 
 
+#: an ingest's trace record without an upload / requester windows
+_NO_UPLOAD = (None,) * 5
+_NO_REQWIN = (None,) * 4
+#: a plan's trace record without a device plan (host tier)
+_NO_DEVICE_PLAN = (None,) * 5
+
+
+def _ingest_spans(rec: tuple) -> list:
+    """The spans of one ingest's trace record (``Tracer.defer``): the
+    ingest and its diff, pack, upload and requester windows, those two
+    where they ran."""
+    (rnd, path, t0, t1, t2, t3, walked, task_changed, req_changed,
+     servers_changed, vanished, task_rows, req_servers, req_rows,
+     u0, u1, rows, nbytes, pieces, w0, w1, w_bytes, perm_rebuilt) = rec
+    p = "planner:ingest"
+    diff = {"round": rnd, "parent": p, "walked": walked,
+            "task_changed": task_changed, "req_changed": req_changed,
+            "servers_changed": servers_changed}
+    if vanished is not None:
+        diff["vanished"] = vanished
+    out = [(p + ".diff", t0, t1, diff),
+           (p + ".pack", t1, t2, {"round": rnd, "parent": p,
+                                  "task_rows": task_rows,
+                                  "req_servers": req_servers,
+                                  "req_rows": req_rows})]
+    if u0 is not None:
+        out.append((p + ".upload", u0, u1, {"round": rnd, "parent": p,
+                                            "rows": rows, "bytes": nbytes,
+                                            "pieces": pieces}))
+    if w0 is not None:
+        out.append((p + ".reqwin", w0, w1, {"round": rnd, "parent": p,
+                                            "bytes": w_bytes,
+                                            "perm_rebuilt": perm_rebuilt}))
+    out.append((p, t0, t3, {"round": rnd, "parent": None, "path": path,
+                            "walked": walked}))
+    return out
+
+
+def _plan_spans(rec: tuple) -> list:
+    """The spans of one plan's trace record (``Tracer.defer``): the plan,
+    its device plan's enqueue and readback (or the host tier's sweep and
+    auction) and the extraction."""
+    rnd, t0, t1, t2, pairs, swept, e0, e1, e2, launches, nbytes = rec
+    p = "planner:plan"
+    if e0 is not None:
+        out = [(p + ".enqueue", e0, e1, {"round": rnd, "parent": p,
+                                         "launches": launches}),
+               (p + ".readback", e1, e2, {"round": rnd, "parent": p,
+                                          "bytes": nbytes})]
+    else:
+        out = [(p + ".host", t0, t1, {"round": rnd, "parent": p,
+                                      "swept": swept})]
+    out.append((p + ".extract", t1, t2, {"round": rnd, "parent": p,
+                                         "pairs": pairs}))
+    out.append((p, t0, t2, {"round": rnd, "parent": None, "pairs": pairs}))
+    return out
+
+
 def build_distributed_solver(nshards: int, rounds: int = 16,
                              cand_width: int = 32,
                              slots_per_type: Optional[int] = None,
@@ -423,13 +481,16 @@ class _Piece:
                                                                2 * K + 2)
         self.work = (_candidates.Workspace(ns, Sl, K, T, D, device)
                      if device.type == "cuda" else None)
+        #: bytes a staged row takes: prios, types, rank, row index
+        self.row_bytes = 4 * (2 * K + 2)
         #: uploads of changed rows so far (one per ingest that changed any)
         self.uploads = 0
 
     def upload(self, rows, tp, tt, rk) -> None:
         """Ship ``rows`` (indices within the piece) with their prios
-        ``tp``, types ``tt`` and ranks ``rk``: one host-to-device copy, one
-        ``index_copy_``; the rest of the piece stays where it is."""
+        ``tp``, types ``tt`` and ranks ``rk``: one host-to-device copy of
+        ``row_bytes`` a row, one ``index_copy_``; the rest of the piece
+        stays where it is."""
         n, K = rows.size, self.K
         self.staged.wait()
         buf = self._np
@@ -437,7 +498,7 @@ class _Piece:
         buf[:n, K:2 * K] = tt
         buf[:n, 2 * K] = rk
         buf[:n, 2 * K + 1] = rows
-        self.staged.upload(4 * n * (2 * K + 2))
+        self.staged.upload(n * self.row_bytes)
         staged = self._dev[:n]
         with _on(self.device):
             self.tab.index_copy_(0, staged[:, 2 * K + 1].long(),
@@ -483,7 +544,18 @@ class DistributedAssignmentSolver:
     a tuple compare otherwise — ships only changed rows to the device,
     runs the fixed-shape planning round (``plan``), and unpacks plan
     entries. Phase timings land in ``last_ingest_ms`` /
-    ``last_solve_ms`` / ``last_extract_ms`` for the obs gauges.
+    ``last_solve_ms`` / ``last_extract_ms`` (read by the benchmark's round
+    records and ``plan_bench``); the engine's obs gauges read
+    ``last_sweep_ms``.
+
+    ``tracer`` (a :class:`~adlb_tpu_torch.runtime.trace.Tracer`, or None
+    for off) records each round's phases as spans on the tracer's clock:
+    ``planner:ingest`` (children ``.diff``, ``.pack``, ``.upload``,
+    ``.reqwin``) and ``planner:plan`` (children ``.enqueue``,
+    ``.readback``, ``.extract``, or ``.host`` on the host tier), each with
+    ``round`` (the plans made before it), ``parent`` and the phase's
+    counts in its ``args``. It is a plain attribute: set it, or set it
+    back to None, between rounds.
 
     Stamp fast-path caveat (documented contract): a server whose
     filtered task list changes with no stamp bump and no plan of ours
@@ -522,6 +594,7 @@ class DistributedAssignmentSolver:
         device: str = "cuda",
         devices: Optional[Sequence] = None,
         merge_route: Optional[str] = None,
+        tracer=None,
     ) -> None:
         if auction not in ("device", "host"):
             raise ValueError(
@@ -657,6 +730,10 @@ class DistributedAssignmentSolver:
         self.last_solve_ms = 0.0
         self.last_extract_ms = 0.0
         self.solve_count = 0
+        #: where the phases' spans go (None: not recorded)
+        self.tracer = tracer
+        # the last traced device plan's readings and counts, for its plan
+        self._plan_readings = _NO_DEVICE_PLAN
         #: the last plan's committed gids per requester slot, [T, C] (-1 =
         #: none): what the tests and chip_smoke compare across placements
         self.last_assigned: Optional[np.ndarray] = None
@@ -738,16 +815,19 @@ class DistributedAssignmentSolver:
                 self._merged = torch.cuda.Event()
         self.merge_route = route
 
-    def _upload_rows(self, changed) -> None:
+    def _upload_rows(self, changed) -> tuple:
         """Ship the changed rows of the host mirror to the resident table:
         each row to the piece that owns it, one copy and one ``index_copy_``
-        per piece with changed rows; the other pieces are not touched."""
+        per piece with changed rows; the other pieces are not touched.
+        Returns (rows shipped, pieces uploaded to)."""
         rows = np.unique(np.asarray(changed, dtype=np.int64))
         owner = rows // self._pieces[0].rows
-        for i in np.unique(owner).tolist():
+        pieces = np.unique(owner).tolist()
+        for i in pieces:
             piece, sel = self._pieces[i], rows[owner == i]
             piece.upload(sel - piece.lo, self._tp[sel], self._tt[sel],
                          np.maximum(self._row_rank[sel], 0))
+        return rows.size, len(pieces)
 
     def _map_server(self, s) -> Optional[int]:
         si = self._si.get(s)
@@ -870,11 +950,19 @@ class DistributedAssignmentSolver:
     # ------------------------------------------------------------------
     def ingest(self, snapshots: dict) -> int:
         """Diff snapshots against the resident state; ship only changed
-        server rows to the device. Returns changed-row count."""
-        t0 = time.perf_counter()
+        server rows to the device. Returns changed-row count.
+
+        Two passes: the diff walks every snapshot and collects the servers
+        whose task or requester tuples changed (with the tuples), then the
+        pack writes them into the host mirror in walk order (task rows and
+        requester rows are separate state, so packing every server's tasks
+        before the requesters changes nothing)."""
+        t0 = clock()
         self._ensure_built()
-        changed: list[int] = []
         planned = self._planned_servers
+        # (rank, tuples) of the servers whose tasks / requesters changed
+        tfound: list = []
+        rfound: list = []
         # every snapshot is OFFERED a row (registered servers always
         # keep theirs; new ones register while capacity lasts, extras
         # map to None). Slicing to the lowest-S ranks here instead
@@ -903,8 +991,7 @@ class DistributedAssignmentSolver:
             ):
                 tasks = tuple(map(tuple, snap["tasks"][: self.K]))
                 if self._task_cache.get(s) != tasks:
-                    self._pack_tasks(s, tasks)
-                    changed.append(self._si[s])
+                    tfound.append((s, tasks))
                 if tstamp is not None:
                     self._task_stamp[s] = tkey
             rstamp = snap.get("stamp")
@@ -916,28 +1003,54 @@ class DistributedAssignmentSolver:
             ):
                 reqs = tuple(map(tuple, snap["reqs"][: self.R]))
                 if self._req_cache.get(s) != reqs:
-                    self._pack_reqs(s, reqs)
+                    rfound.append((s, reqs))
                 if rstamp is not None:
                     self._req_stamp[s] = rkey
         planned.clear()
-        # servers that vanished (failover): unregister — clear their
-        # rows AND free the slot for the next join. Checked every
+        # servers that vanished (failover): unregistered below — their
+        # rows cleared AND the slot freed for the next join. Checked every
         # ingest (O(S) dict lookups) — gating on a shrinking snapshot
         # COUNT missed a death that coincides with another server
         # joining, or a world larger than capacity S, leaving a dead
         # server's resident rows winning auctions forever
-        for s in [r for r in self._servers if r not in snapshots]:
+        vanished = [r for r in self._servers if r not in snapshots]
+        t1 = clock()
+        changed: list[int] = []
+        for s, tasks in tfound:
+            self._pack_tasks(s, tasks)
+            changed.append(self._si[s])
+        for s, reqs in rfound:
+            self._pack_reqs(s, reqs)
+        for s in vanished:
             self._unregister(s, changed)
-        self._finish_ingest(changed)
-        self.last_ingest_ms = (time.perf_counter() - t0) * 1e3
+        t2 = clock()
+        fin = self._finish_ingest(changed)
+        t3 = clock()
+        self.last_ingest_ms = (t3 - t0) * 1e3
+        tr = self.tracer
+        if tr is not None:
+            tr.defer(_ingest_spans, (
+                self.solve_count, "tuple", t0, t1, t2, t3, len(snapshots),
+                len(tfound), len(rfound),
+                len({s for s, _ in tfound} | {s for s, _ in rfound}),
+                len(vanished), len(changed), len(rfound),
+                sum(len(r) for _, r in rfound)) + fin)
         return len(changed)
 
-    def _finish_ingest(self, changed: list) -> None:
+    def _finish_ingest(self, changed: list) -> Optional[tuple]:
         """Shared ingest tail (tuple and view paths): ship changed rows,
         patch or dirty the host tier's merged candidate lists, rebuild
-        the requester slot windows."""
+        the requester slot windows. With a tracer, returns the end of the
+        ingest's trace record: the upload's and the windows' readings and
+        counts (Nones for a step that did not run)."""
+        tr = self.tracer
+        up, win = _NO_UPLOAD, _NO_REQWIN
         if changed:
-            self._upload_rows(changed)
+            t0 = clock()
+            rows, pieces = self._upload_rows(changed)
+            if tr is not None:
+                up = (t0, clock(), rows, rows * self._pieces[0].row_bytes,
+                      pieces)
             if self.auction == "device":
                 # the device tier regenerates candidates from the
                 # resident table every plan — nothing to patch
@@ -950,7 +1063,9 @@ class DistributedAssignmentSolver:
             else:
                 self._patch_candidates(changed)
         if self._reqs_dirty:
-            if self._row_perm is None:
+            t0 = clock()
+            perm_rebuilt = self._row_perm is None
+            if perm_rebuilt:
                 # rank-sorted slots first, then the unused slots (all
                 # their rows invalid — order among them is irrelevant)
                 used = sorted(self._si.items())  # (rank, si) rank-asc
@@ -968,6 +1083,10 @@ class DistributedAssignmentSolver:
             if self.auction == "device":
                 self._build_req_tables()
             self._reqs_dirty = False
+            if tr is not None:
+                win = (t0, clock(), self._req_bytes
+                       if self.auction == "device" else 0, perm_rebuilt)
+        return None if tr is None else up + win
 
     def _build_req_tables(self) -> None:
         """Device-tier requester tables (:func:`_compact_reqwin`), then one
@@ -994,7 +1113,7 @@ class DistributedAssignmentSolver:
         walk runs only when the ledger's ``member_gen`` moved (churn) —
         a steady-state round does O(changed) python work, which is what
         holds the idle planning round flat at 10k servers."""
-        t0 = time.perf_counter()
+        t0 = clock()
         self._ensure_built()
         # layout agreement is load-bearing: refs index [K]/[R] rows
         assert (view.K, view.R, tuple(view.types)) == (
@@ -1033,10 +1152,12 @@ class DistributedAssignmentSolver:
                 self._seen_tgen[slot] = 0
                 self._seen_rgen[slot] = 0
             self._seen_member_gen = view.member_gen
+        tslots = np.flatnonzero(view.t_gen != self._seen_tgen).tolist()
+        rslots = np.flatnonzero(view.r_gen != self._seen_rgen).tolist()
+        t1 = clock()
         R = self.R
         slot_rank = view.slot_rank
-        for slot in np.flatnonzero(
-                view.t_gen != self._seen_tgen).tolist():
+        for slot in tslots:
             self._seen_tgen[slot] = view.t_gen[slot]
             si = self._si.get(int(slot_rank[slot]))
             if si is None:
@@ -1045,8 +1166,8 @@ class DistributedAssignmentSolver:
             self._tt[si, :] = view.pk_tt[slot]
             self._task_ref[si] = list(view.pk_trefs[slot])
             changed.append(si)
-        for slot in np.flatnonzero(
-                view.r_gen != self._seen_rgen).tolist():
+        rpacked: list = []
+        for slot in rslots:
             self._seen_rgen[slot] = view.r_gen[slot]
             si = self._si.get(int(slot_rank[slot]))
             if si is None:
@@ -1058,12 +1179,22 @@ class DistributedAssignmentSolver:
             for i in range(R):
                 self._req_ref[base + i] = rrefs[i]
             self._reqs_dirty = True
+            rpacked.append(slot)
         # plan() keeps recording its touches for the tuple path; the
         # view path's generations already carry them — drop so the set
         # cannot grow unboundedly
         self._planned_servers.clear()
-        self._finish_ingest(changed)
-        self.last_ingest_ms = (time.perf_counter() - t0) * 1e3
+        t2 = clock()
+        fin = self._finish_ingest(changed)
+        t3 = clock()
+        self.last_ingest_ms = (t3 - t0) * 1e3
+        tr = self.tracer
+        if tr is not None:
+            tr.defer(_ingest_spans, (
+                self.solve_count, "view", t0, t1, t2, t3, len(view.servers),
+                len(tslots), len(rslots), len(set(tslots) | set(rslots)),
+                None, len(changed), len(rpacked),
+                int(view.pk_rv[rpacked].sum())) + fin)
         return len(changed)
 
     def _patch_candidates(self, changed: list) -> None:
@@ -1141,7 +1272,7 @@ class DistributedAssignmentSolver:
         """Full device sweep: the sharded candidate generation on the
         devices plus the device->host transfer of the planning round (one
         per piece), re-materializing the merged candidate lists."""
-        t0 = time.perf_counter()
+        t0 = clock()
         both = np.concatenate(
             [p.candidates(self.T, self.D).cpu().numpy()
              for p in self._pieces], axis=1)
@@ -1162,7 +1293,7 @@ class DistributedAssignmentSolver:
         self._cand_dirty = False
         self._plans_since_sweep = 0
         self.sweep_count += 1
-        self.last_sweep_ms = (time.perf_counter() - t0) * 1e3
+        self.last_sweep_ms = (clock() - t0) * 1e3
 
     def _wait_runs(self) -> None:
         """In place across cards: each other card's stream marks its runs
@@ -1212,18 +1343,35 @@ class DistributedAssignmentSolver:
                                 work=self._work)
 
     def _device_plan(self) -> np.ndarray:
-        """:meth:`_enqueue_device_plan`, then one [T, C+1] readback."""
-        return self._enqueue_device_plan().cpu().numpy()[:, : self.C]
+        """:meth:`_enqueue_device_plan`, then one [T, C+1] readback: the
+        host blocked until the device's work and the copy have landed."""
+        tr = self.tracer
+        if tr is not None:
+            launches = (_candidates.launches + _candidates.merge_launches
+                        + _auction.launches)
+        t0 = clock()
+        out = self._enqueue_device_plan()
+        t1 = clock()
+        assigned = out.cpu().numpy()
+        if tr is not None:
+            self._plan_readings = (
+                t0, t1, clock(), _candidates.launches
+                + _candidates.merge_launches + _auction.launches - launches,
+                assigned.nbytes)
+        return assigned[:, : self.C]
 
     def plan(self) -> list:
         """One fixed-shape planning round over the resident state."""
         if not self._req_valid.any():
             return []
-        t0 = time.perf_counter()
+        t0 = clock()
         self._ensure_built()
+        tr = self.tracer
+        swept = None
         if self.auction == "device":
             assigned = self._device_plan()
         else:
+            swept = False
             if (
                 self._cand_dirty
                 or self._plans_since_sweep >= self.RESYNC_INTERVAL
@@ -1233,12 +1381,13 @@ class DistributedAssignmentSolver:
                     else "delta" if self._cand_dirty
                     else "cadence"] += 1
                 self._sweep()
+                swept = True
             self._plans_since_sweep += 1
             req_open = self._req_valid.copy()
             assigned = _host_auction(
                 self._gp, self._gg, self._rw, self._lens, req_open,
                 self.rounds, self.m)
-        t1 = time.perf_counter()
+        t1 = clock()
         self.last_solve_ms = (t1 - t0) * 1e3
         self.last_assigned = assigned
         pairs = []
@@ -1258,7 +1407,13 @@ class DistributedAssignmentSolver:
             pairs.append((holder, seqno, req_home, for_rank, rqseqno))
             self._planned_servers.add(holder)
             self._planned_servers.add(req_home)
-        self.last_extract_ms = (time.perf_counter() - t1) * 1e3
+        t2 = clock()
+        self.last_extract_ms = (t2 - t1) * 1e3
+        if tr is not None:
+            tr.defer(_plan_spans, (
+                self.solve_count, t0, t1, t2, len(pairs), swept)
+                + (self._plan_readings if swept is None
+                   else _NO_DEVICE_PLAN))
         self.solve_count += 1
         return pairs
 

@@ -105,6 +105,7 @@ class PlanEngine:
         device: str = "cuda",
         nshards: Optional[int] = None,
         devices: Optional[list] = None,
+        tracer=None,
     ) -> None:
         from adlb_tpu_torch.balancer.solve import AssignmentSolver
 
@@ -139,7 +140,8 @@ class PlanEngine:
             # warmed (pieces, workspaces, peer access, events) as the JAX
             # engine builds its mesh, so no planning round pays for it. A
             # construction or launch failure on any card propagates —
-            # degrading to the single-device solver would hide it
+            # degrading to the single-device solver would hide it. The
+            # tracer (runtime/trace.py, None: off) records its phases
             if devices is None and nshards is None:
                 devices, _ = shard_placement(
                     device, torch.cuda.device_count()
@@ -161,6 +163,7 @@ class PlanEngine:
                     job_weights=self._job_weights,
                     device=device,
                     devices=devices,
+                    tracer=tracer,
                 )
                 if devices is not None:
                     self.solver.warm()

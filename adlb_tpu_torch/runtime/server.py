@@ -145,6 +145,7 @@ class _BalancerWorker(threading.Thread):
             max_jobs=s.cfg.balancer_max_jobs,
             job_weights=s.cfg.job_weights,
             device=s.cfg.device,
+            tracer=s.tracer,
         )
         s._solver = engine.solver
         s._engine = engine  # weights fan-out (set_job_weights) target

@@ -20,7 +20,17 @@ each planning round in ``balancer:round``, on a tracer whose ``pid``
 marks the role. Client tracers run as ``pid=0`` ("apps"), server tracers
 as ``pid=1`` ("servers"), so one merged Perfetto/chrome://tracing file
 shows both sides of every reserve as two process lanes on a shared
-clock (all ranks in one ``run_world`` share ``time.monotonic``).
+clock. The sharded planner records its phases on the tracer it is given
+(``planner:ingest`` and ``planner:plan`` with their children, nested under
+the ``balancer:round`` that called it).
+
+Every timestamp is read from :func:`clock`, ``time.perf_counter``: the
+clock the benchmark ties ``torch.profiler``'s device trace to (its
+``bench_clock_mark``), so a span lies on the device trace's time line
+as recorded. All ranks of one ``run_world`` share it. On Linux it is
+``CLOCK_MONOTONIC``, the clock ``time.monotonic`` reads too, which is
+what the unit journeys' flow events (``obs/journey.py``) are stamped
+with.
 
 Events use the Chrome trace-event format (``ph: "X"``, microsecond
 timestamps, ``tid`` = world rank) so a merged dump loads directly in
@@ -39,8 +49,19 @@ PID_APP = 0
 PID_SERVER = 1
 
 
+def clock() -> float:
+    """The tracer's clock, in seconds: ``time.perf_counter``. Spans given
+    their own readings (:meth:`Tracer.complete`) must read this clock."""
+    return time.perf_counter()
+
+
 def _now_us() -> float:
-    return time.monotonic() * 1e6
+    return clock() * 1e6
+
+
+def _as_given(span: tuple) -> tuple:
+    """:meth:`Tracer.complete`'s record is its one span."""
+    return (span,)
 
 
 class Tracer:
@@ -48,7 +69,15 @@ class Tracer:
     event, no locks on the hot path (each rank owns its tracer; the one
     cross-thread writer — the balancer thread into its server's tracer —
     rides CPython's atomic list.append). ``max_events`` bounds memory on
-    long server runs; overflow increments ``dropped`` instead of growing."""
+    long server runs; overflow increments ``dropped`` instead of growing.
+
+    :meth:`defer` keeps a caller's record, a tuple, and :attr:`events`
+    renders it into spans when it is read: the sharded planner records a
+    round's phases as two tuples of plain values, which the collector
+    stops walking once it has seen them, where a window's worth of event
+    dicts would cost the round their allocation and the collector's walks
+    over them. Read :attr:`events` once the recording threads are done, as
+    the world harnesses do."""
 
     def __init__(
         self,
@@ -61,10 +90,13 @@ class Tracer:
         self.pid = pid
         self.max_events = max_events
         self.dropped = 0
-        self.events: list[dict] = []
+        self._events: list[dict] = []
+        # defer()'s records by their render function, not yet rendered
+        self._deferred: dict = {}
+        self._pending = 0  # records in _deferred
         if process_name:
             # Chrome-trace metadata: names the pid lane in Perfetto
-            self.events.append(
+            self._events.append(
                 {
                     "name": "process_name",
                     "ph": "M",
@@ -77,11 +109,45 @@ class Tracer:
         # pending user-state inference: (work_type, span start in us)
         self._user_since: Optional[tuple[int, float]] = None
 
+    @property
+    def events(self) -> list[dict]:
+        """Every event kept, as Chrome-trace dicts: the deferred records
+        rendered now, after the events recorded otherwise."""
+        if self._deferred:
+            deferred, self._deferred = self._deferred, {}
+            self._pending = 0
+            pid, tid = self.pid, self.rank
+            for render, records in deferred.items():
+                for rec in records:
+                    for name, t0, t1, args in render(rec):
+                        ev = {"name": name, "ph": "X", "ts": t0 * 1e6,
+                              "dur": (t1 - t0) * 1e6, "pid": pid,
+                              "tid": tid}
+                        if args:
+                            ev["args"] = args
+                        self._events.append(ev)
+        return self._events
+
     def _emit(self, ev: dict) -> None:
-        if len(self.events) >= self.max_events:
+        if len(self._events) + self._pending >= self.max_events:
             self.dropped += 1
             return
-        self.events.append(ev)
+        self._events.append(ev)
+
+    def defer(self, render, record: tuple) -> None:
+        """Keep ``record`` until :attr:`events` is read, then add the spans
+        ``render(record)`` gives, each ``(name, t0, t1, args)`` with two
+        readings of :func:`clock` in seconds. A record of plain values
+        (numbers, strings, None) costs the collector nothing after its
+        first look; one record counts once against ``max_events``."""
+        if len(self._events) + self._pending >= self.max_events:
+            self.dropped += 1
+            return
+        self._pending += 1
+        records = self._deferred.get(render)
+        if records is None:
+            records = self._deferred[render] = []
+        records.append(record)
 
     @contextmanager
     def span(self, name: str, **args):
@@ -100,6 +166,12 @@ class Tracer:
                     **({"args": args} if args else {}),
                 }
             )
+
+    def complete(self, name: str, t0: float, t1: float, **args) -> None:
+        """One complete-span event over [t0, t1], two readings of
+        :func:`clock` in seconds that the caller already took at its phase
+        boundaries."""
+        self.defer(_as_given, (name, t0, t1, args))
 
     def instant(self, name: str, **args) -> None:
         self._emit(
