@@ -1,28 +1,34 @@
-"""The sharded planner's auction rounds: a hand-written CUDA kernel and its
-plain PyTorch version.
+"""The sharded planner's auction: a hand-written CUDA kernel and its plain
+PyTorch version.
 
-:func:`auction` computes what the ``lax.while_loop`` of the JAX package's
-fused planning program computes (``adlb_tpu/balancer/distributed.py``,
-``_build_plan_fn``, ``body`` / ``cond``): from the merged per-type candidate
-lists ``gp, gg [T, L]`` (prio desc, gid asc, ``_NEG`` / ``_I32MAX`` padded;
-the device plan hands over the first ``D = C + m + 1`` columns of the merge,
+:func:`auction_windows` is the sharded planner's device plan after the
+merge. From the requester table resident on the card it builds the
+requester windows (the host's ``_reqwin`` and ``_compact_reqwin``): the
+slot table over dense requester ids ``rwc [T, C]`` (``U = T * C`` marks an
+empty slot), the slots per type ``lens [T]`` and the open requesters
+``open0 [U + 1]``. Then it computes what the ``lax.while_loop`` of the JAX
+package's fused planning program computes (``adlb_tpu/balancer/
+distributed.py``, ``_build_plan_fn``, ``body`` / ``cond``): from the merged
+per-type candidate lists ``gp, gg [T, L]`` (prio desc, gid asc, ``_NEG`` /
+``_I32MAX`` padded; the device plan hands over the first ``D = C + m + 1``
+columns of the merge,
 :func:`adlb_tpu_torch.balancer.candidates.merged_candidates`, and no round
-reads past index ``C + m``),
-the slot table over host-compacted requester ids ``rwc [T, C]`` (``U = T *
-C`` marks an empty slot), the slots per type ``lens [T]`` and the open
-requesters ``open0 [U + 1]`` bool, it runs at most ``rounds`` auction rounds
-of ``m`` ranks per type and returns ``assigned [T, C + 1]`` int32: the gid
+reads past index ``C + m``) it runs at most ``rounds`` auction rounds of
+``m`` ranks per type, giving ``assigned [T, C + 1]`` int32: the gid
 committed to each slot, or -1 (column C is the program's scatter dump).
 
-* On CUDA tensors it is one launch of ``csrc/auction.cu``, the whole loop
-  inside one thread block sized to a round's work (the lists staged into
-  shared memory, :data:`BARRIERS_PER_ROUND` block barriers a round), built
-  with ``nvcc`` into ``adlb_tpu_torch/_build/`` at first use and
-  loaded with ``ctypes``. :class:`Workspace` keeps the output and, where
-  the working set does not fit in shared memory, the kernel's scratch
-  buffer, from launch to launch.
-* On CPU tensors it runs :func:`auction_torch`, a line-for-line transcription
-  of ``body`` and ``cond`` with a Python loop.
+* On CUDA tensors it is one launch of ``csrc/auction.cu``: the windows
+  built in the kernel's prologue, then the whole loop inside one thread
+  block sized to a round's work (the lists staged into shared memory,
+  :data:`BARRIERS_PER_ROUND` block barriers a round), built with ``nvcc``
+  into ``adlb_tpu_torch/_build/`` at first use and loaded with ``ctypes``.
+  :class:`Workspace` keeps the output and, where the working set does not
+  fit in shared memory, the kernel's scratch buffer, from launch to
+  launch.
+* On CPU tensors it runs :func:`windows_torch`, then :func:`auction_torch`,
+  a line-for-line transcription of ``body`` and ``cond`` with a Python
+  loop, over the tables it built (the rounds' plain version takes the
+  tables as given, so the tests also run it over the host's).
 
 There is no fallback between the two: a CUDA tensor launches the kernel or
 raises.
@@ -82,13 +88,16 @@ def build() -> Path:
         lib = ctypes.PyDLL(str(out))  # keeps the interpreter lock
         sigs = {
             "adlb_auction_init": ([], ctypes.c_int),
-            "adlb_auction_scratch_bytes": ([ctypes.c_int] * 3,
-                                           ctypes.c_longlong),
-            "adlb_auction": ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                             + [ctypes.c_void_p] * 3, ctypes.c_int),
-            "adlb_auction_stages_lists": ([ctypes.c_int] * 3, ctypes.c_int),
-            "adlb_auction_threads": ([ctypes.c_int] * 2, ctypes.c_int),
+            "adlb_auction_windows": ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                                     + [ctypes.c_void_p] * 3
+                                     + [ctypes.c_int] * 7
+                                     + [ctypes.c_void_p] * 3, ctypes.c_int),
+            "adlb_auction_windows_stages_lists": ([ctypes.c_int] * 3,
+                                                  ctypes.c_int),
+            "adlb_auction_windows_scratch_bytes": ([ctypes.c_int] * 3,
+                                                   ctypes.c_longlong),
+            "adlb_auction_windows_threads": ([ctypes.c_int] * 2,
+                                             ctypes.c_int),
             "adlb_auction_error_string": ([ctypes.c_int], ctypes.c_char_p),
         }
         for name, (argtypes, restype) in sigs.items():
@@ -133,51 +142,157 @@ def _check(gp, gg, rwc, lens, open0, m: int) -> None:
         raise ValueError(f"m must be >= 1, got {m}")
 
 
+def delta_ints(n: int, R: int, T: int) -> int:
+    """Int32 words of the staged rows of ``n`` server slots: the slots,
+    then each of their ``n * R`` rows' T type-flag bytes (one byte a flag,
+    as the host's mirror holds them; all 0 on a row that is not valid),
+    padded to a word."""
+    return n + -(-n * R * T // 4)
+
+
+def _check_windows(gp, gg, table, order, delta, n_delta: int, C: int,
+                   m: int) -> int:
+    """Checks :func:`auction_windows`'s inputs; returns R, the rows a
+    slot."""
+    dev = gp.device
+    for name, x, ndim in (("gp", gp, 2), ("gg", gg, 2), ("table", table, 2),
+                          ("order", order, 1), ("delta", delta, 1)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, gp on {dev}")
+        if x.dtype != torch.int32 or x.dim() != ndim:
+            raise ValueError(f"{name} must be a {ndim}-d int32 tensor, got "
+                             f"{x.dim()}-d {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    T = gp.shape[0]
+    NR, W = table.shape
+    S = order.shape[0] - 1
+    if gp.shape != gg.shape or gp.shape[1] < 1 or C < 1 or m < 1:
+        raise ValueError(f"gp {tuple(gp.shape)} and gg {tuple(gg.shape)} must "
+                         f"both be [T, L >= 1], C and m >= 1")
+    if S < 1 or NR % S or NR == 0 or 32 * W < T:
+        raise ValueError(f"table [{NR}, {W}] must hold R rows for each of the "
+                         f"{S} slots of the order and a bit per type (T={T})")
+    R = NR // S
+    need = delta_ints(n_delta, R, T)
+    if n_delta < 0 or delta.shape[0] < need:
+        raise ValueError(f"delta holds {delta.shape[0]} ints, {n_delta} "
+                         f"slots' rows need {need}")
+    return R
+
+
 class Workspace:
     """The kernel's card buffers at one (T, C, m) shape, reused from launch
-    to launch: ``out`` (assigned ``[T, C + 1]``, then the rounds run) and,
-    where the working set (about 13 T C + 21 T m bytes) does not fit in
-    shared memory, the kernel's scratch buffer. ``lists_staged``: the
-    lists' first C + m + 1 columns (8 T (C + m + 1) bytes) fit beside the
-    working set in shared memory, and each launch stages them there.
-    ``threads``: the launch's block size. Building the kernel comes
-    first."""
+    to launch: ``out`` (assigned ``[T, C + 1]``, the rows ``[T, C + 1]``,
+    the rounds run and ``scanned``) and, where the working set (about 13 T
+    C + 21 T m bytes and the scan's counts) does not fit in shared memory,
+    the kernel's scratch buffer. ``lists_staged``: the lists' first C + m +
+    1 columns (8 T (C + m + 1) bytes) fit beside the working set in shared
+    memory, and each launch stages them there. ``threads``: the launch's
+    block size. Building the kernel comes first."""
 
     def __init__(self, T: int, C: int, m: int, device) -> None:
         _ready(device)
         self.shape = (T, C, m)
-        self.lists_staged = bool(_lib.adlb_auction_stages_lists(T, C, m))
-        self.threads = _lib.adlb_auction_threads(T, m)
+        self.lists_staged = bool(
+            _lib.adlb_auction_windows_stages_lists(T, C, m))
+        self.threads = _lib.adlb_auction_windows_threads(T, m)
+        n = T * (C + 1)
         with torch.cuda.device(device):
-            self.out = torch.empty((T * (C + 1) + 1,), dtype=torch.int32,
+            self.out = torch.empty((2 * n + 2,), dtype=torch.int32,
                                    device=device)
-            nbytes = _lib.adlb_auction_scratch_bytes(T, C, m)
+            nbytes = _lib.adlb_auction_windows_scratch_bytes(T, C, m)
             self.scratch = (torch.empty((nbytes,), dtype=torch.uint8,
                                         device=device) if nbytes else None)
-        #: assigned [T, C + 1] and the rounds the last launch ran, as views
-        self.assigned = self.out[:T * (C + 1)].view(T, C + 1)
-        self.rounds_run = self.out[T * (C + 1)]
+        #: assigned [T, C + 1], as a view
+        self.assigned = self.out[:n].view(T, C + 1)
 
-    def launch(self, gp, gg, rwc, lens, open0, rounds: int) -> torch.Tensor:
+    @property
+    def rounds_run(self) -> torch.Tensor:
+        """The rounds the last launch ran (a one-element view)."""
+        T, C, _ = self.shape
+        return self.out[2 * T * (C + 1)]
+
+    def launch_windows(self, gp, gg, table, order, delta, n_delta: int,
+                       rounds: int) -> torch.Tensor:
         """One launch on the tensors' card and its current stream; returns
-        :attr:`assigned`."""
+        :attr:`out` (:func:`auction_windows`)."""
         global launches
         T, C, m = self.shape
-        _check(gp, gg, rwc, lens, open0, m)
-        if rwc.shape != (T, C) or gp.device != self.out.device:
-            raise ValueError(f"workspace for T={T}, C={C} on "
-                             f"{self.out.device}, got rwc "
-                             f"{tuple(rwc.shape)} on {gp.device}")
+        R = _check_windows(gp, gg, table, order, delta, n_delta, C, m)
+        if gp.shape[0] != T or gp.device != self.out.device:
+            raise ValueError(f"workspace for T={T} on {self.out.device}, got "
+                             f"gp {tuple(gp.shape)} on {gp.device}")
         with torch.cuda.device(gp.device):
-            _raise_on(_lib.adlb_auction(
-                gp.data_ptr(), gg.data_ptr(), gp.shape[1], rwc.data_ptr(),
-                lens.data_ptr(), open0.data_ptr(), T, C, m, rounds,
-                self.out.data_ptr(),
+            _raise_on(_lib.adlb_auction_windows(
+                gp.data_ptr(), gg.data_ptr(), gp.shape[1], table.data_ptr(),
+                order.data_ptr(), delta.data_ptr(), n_delta, R,
+                table.shape[1], T, C, m, rounds, self.out.data_ptr(),
                 self.scratch.data_ptr() if self.scratch is not None else None,
                 torch.cuda.current_stream(gp.device).cuda_stream),
                 "auction launch")
         launches += 1
-        return self.assigned
+        return self.out
+
+
+def windows_torch(table, order, delta, n_delta: int, T: int, C: int):
+    """The windows prologue's plain version: packs the first ``n_delta``
+    slots' rows of ``delta`` (:func:`delta_ints`) into ``table`` (in place,
+    as the kernel does), then scans the rows of the slots in use in rank
+    order (``order``) into each type's window of the first C accepting
+    rows. Returns (rwc [T, C]
+    int32 of dense ids in scan order, ``U = T * C`` past a window; lens [T]
+    int32; open0 [U + 1] bool; rows [T, C + 1] int32: the physical row of
+    each slot, -1 past the window, its length in column C; scanned: the
+    rows the windows took in, up to the row that filled the last window, or
+    every row in use when one stays short)."""
+    dev = table.device
+    NR, W = table.shape
+    R = NR // (order.shape[0] - 1)
+    U = T * C
+    if n_delta:
+        n = n_delta * R
+        raw = delta[n_delta:delta_ints(n_delta, R, T)].view(torch.uint8)
+        vm = raw[:n * T].view(n, T).bool().to(torch.int64)
+        bits = torch.zeros((n, 32 * W), dtype=torch.int64, device=dev)
+        bits[:, :T] = vm << (torch.arange(T, device=dev) % 32)
+        words = bits.view(n, W, 32).sum(dim=2)
+        slots = delta[:n_delta].long()
+        rows = (slots[:, None] * R + torch.arange(R, device=dev)).reshape(-1)
+        table[rows] = (words - (words >= 2**31) * 2**32).to(torch.int32)
+    seq = order[1:1 + int(order[0])].long()
+    rows_all = (seq[:, None] * R
+                + torch.arange(R, dtype=torch.int64, device=dev)).reshape(-1)
+    widx = torch.arange(T, device=dev) // 32
+    shift = (torch.arange(T, device=dev) % 32).to(torch.int32)
+    lens = torch.zeros((T,), dtype=torch.int64, device=dev)
+    rwc = torch.full((T, C), U, dtype=torch.int32, device=dev)
+    rows = torch.full((T, C + 1), -1, dtype=torch.int32, device=dev)
+    fill = torch.zeros((T,), dtype=torch.int64, device=dev)
+    nuniq = 0
+    CHUNK = 16384
+    for a in range(0, rows_all.shape[0], CHUNK):
+        rr = rows_all[a:a + CHUNK]
+        bits = ((table[rr][:, widx] >> shift) & 1).bool()  # [n, T]
+        rank = lens[None, :] + torch.cumsum(bits, 0) - 1
+        take = bits & (rank < C)
+        taken = take.any(dim=1)
+        ids = nuniq + torch.cumsum(taken, 0) - 1
+        i, t = take.nonzero(as_tuple=True)
+        k = rank[i, t]
+        rwc[t, k] = ids[i].to(torch.int32)
+        rows[t, k] = rr[i].to(torch.int32)
+        last = k == C - 1
+        fill[t[last]] = a + i[last] + 1
+        nuniq += int(taken.sum())
+        lens = torch.clamp(lens + bits.sum(dim=0), max=C)
+        if bool((lens >= C).all()):
+            break
+    rows[:, C] = lens.to(torch.int32)
+    full = bool((lens >= C).all())
+    scanned = int(fill.max()) if full else rows_all.shape[0]
+    open0 = torch.arange(U + 1, device=dev) < nuniq
+    return rwc, lens.to(torch.int32), open0, rows, scanned
 
 
 def auction_torch(gp, gg, rwc, lens, open0, rounds: int, m: int):
@@ -186,6 +301,11 @@ def auction_torch(gp, gg, rwc, lens, open0, rounds: int, m: int):
     drops out-of-range scatter indices (``mode="drop"``); here they go to a
     dump column that is cut off, as the program does for its other
     scatters."""
+    return _rounds_torch(gp, gg, rwc, lens, open0, rounds, m)[0]
+
+
+def _rounds_torch(gp, gg, rwc, lens, open0, rounds: int, m: int):
+    """:func:`auction_torch`'s rounds: (assigned, the rounds run)."""
     _check(gp, gg, rwc, lens, open0, m)
     dev = gp.device
     T, L = gp.shape
@@ -255,21 +375,35 @@ def auction_torch(gp, gg, rwc, lens, open0, rounds: int, m: int):
         head = head + commit.sum(dim=1, dtype=i32)
         rnd += 1
         last = int(commit.sum())
-    return assigned
+    return assigned, rnd
 
 
-def auction(gp, gg, rwc, lens, open0, rounds: int, m: int,
-            work: Workspace | None = None):
-    """assigned [T, C + 1] int32 (see the module docstring). On CUDA
+def auction_windows(gp, gg, table, order, delta, n_delta: int, rounds: int,
+                    m: int, C: int, work: Workspace | None = None):
+    """The sharded planner's device plan after the merge: the windows built
+    from the resident requester table (``table`` [S * R, W] int32, updated
+    in place by the first ``n_delta`` slots' rows of ``delta``; ``order``
+    [1 + S] int32: the slots in use, then the slots in rank order), then
+    the rounds over them. Returns one int32 tensor of ``2 * T * (C + 1) +
+    2``: assigned [T, C + 1] (the module docstring), the rows [T, C + 1]
+    (:func:`windows_torch`), the rounds run and ``scanned``. On CUDA
     tensors one launch of the kernel into ``work`` (a :class:`Workspace` at
-    ``(T, C, m)``; a new one when None), on CPU tensors the plain version;
+    ``(T, C, m)``; a new one when None), on CPU tensors the plain versions;
     any other device raises."""
     if gp.device.type == "cuda":
         if work is None:
-            work = Workspace(rwc.shape[0], rwc.shape[1], m, gp.device)
-        elif work.shape[2] != m:
-            raise ValueError(f"workspace for m={work.shape[2]}, got m={m}")
-        return work.launch(gp, gg, rwc, lens, open0, rounds)
+            work = Workspace(gp.shape[0], C, m, gp.device)
+        elif work.shape[1:] != (C, m):
+            raise ValueError(f"workspace for C, m = {work.shape[1:]}, got "
+                             f"{(C, m)}")
+        return work.launch_windows(gp, gg, table, order, delta, n_delta,
+                                   rounds)
     if gp.device.type == "cpu":
-        return auction_torch(gp, gg, rwc, lens, open0, rounds, m)
+        _check_windows(gp, gg, table, order, delta, n_delta, C, m)
+        T = gp.shape[0]
+        rwc, lens, open0, rows, scanned = windows_torch(
+            table, order, delta, n_delta, T, C)
+        assigned, rnd = _rounds_torch(gp, gg, rwc, lens, open0, rounds, m)
+        return torch.cat((assigned.reshape(-1), rows.reshape(-1),
+                          torch.tensor([rnd, scanned], dtype=torch.int32)))
     raise ValueError(f"no auction for device {gp.device}")

@@ -47,11 +47,14 @@ The solver runs one of two tiers over those steps:
   merge and the auction run once, where the JAX program replicates them on
   every device) and step 2 as one launch of its merge alone; step 3 as one
   launch of ``csrc/auction.cu`` (:mod:`adlb_tpu_torch.balancer.auction`)
-  on the planning card over host-compacted requester ids (U = T*C distinct
-  ids at most, so the per-round scatters never touch O(requesters)
-  state); their plain torch versions on ``"cpu"``. A planning round ends
-  in one [T, C+1] commit-table readback — no sort on the card, no
-  per-round host merge, no O(S) host work.
+  on the planning card, whose prologue builds the requester windows from
+  the requester table resident there (:class:`_Requesters`: each ingest
+  ships the rewritten servers' rows, the kernel applies them) and gives
+  their rows dense ids (U = T*C distinct ids at most, so the per-round
+  scatters never touch O(requesters) state); their plain torch versions
+  on ``"cpu"``. A planning round ends in one [2, T, C+1] readback (the
+  commits and each slot's requester row) — no sort on the card, no
+  per-round host merge, no host window scan, no O(S) host work.
 - ``auction="host"``: the retained twin — steps 2-3 on the planner host
   (numpy), with the merged candidate lists cached and patched in place
   between device sweeps (step 1 on the cards, each card's per-shard lists
@@ -92,6 +95,8 @@ import torch
 
 from adlb_tpu_torch.balancer import auction as _auction
 from adlb_tpu_torch.balancer import candidates as _candidates
+from adlb_tpu_torch.balancer import cuda_build as _cuda_build
+from adlb_tpu_torch.balancer import staged_copy as _staged_copy
 from adlb_tpu_torch.balancer.candidates import (  # noqa: F401  (plain versions)
     _merge_candidates, _shard_candidates)
 from adlb_tpu_torch.balancer.jobdim import bias_vector, expand_types
@@ -232,12 +237,14 @@ def _host_auction(gp, gg, reqwin, lens, req_open, rounds: int, m: int):
 
 
 def _compact_reqwin(reqwin):
-    """The device tier's requester tables from ``reqwin [T, C]``: the row
-    ids compacted to a dense [0, U) id space (U = T*C static; U itself is
-    the dump id and marks an empty slot), so the auction's winner/open
-    scatters are a few KB, independent of the requester-table depth.
-    Returns (rwc [T, C] int32, open0 [U + 1] bool: True for every real
-    compacted id)."""
+    """The auction's requester tables from ``reqwin [T, C]``: the row ids
+    compacted to a dense [0, U) id space (U = T*C static; U itself is the
+    dump id and marks an empty slot), so the auction's winner/open scatters
+    are a few KB, independent of the requester-table depth. Returns (rwc
+    [T, C] int32, open0 [U + 1] bool: True for every real compacted id).
+    The device tier's auction builds its tables in its prologue instead
+    (ids in scan order, the same commits); this host version is the
+    reference the tests and ``chip_smoke.py`` hold the kernel to."""
     T, C = reqwin.shape
     U = T * C
     flat = reqwin.reshape(-1)
@@ -282,20 +289,20 @@ def _merge_shard_major(cp, cg):
     )
 
 
-#: an ingest's trace record without an upload / requester windows
+#: an ingest's trace record without an upload / requester windows or rows
 _NO_UPLOAD = (None,) * 5
-_NO_REQWIN = (None,) * 4
+_NO_REQWIN = (None,) * 5
 #: a plan's trace record without a device plan (host tier)
-_NO_DEVICE_PLAN = (None,) * 5
+_NO_DEVICE_PLAN = (None,) * 6
 
 
 def _ingest_spans(rec: tuple) -> list:
     """The spans of one ingest's trace record (``Tracer.defer``): the
-    ingest and its diff, pack, upload and requester windows, those two
-    where they ran."""
+    ingest and its diff, pack, upload and, where they ran, the host tier's
+    requester windows or the device tier's requester rows."""
     (rnd, path, t0, t1, t2, t3, walked, task_changed, req_changed,
      servers_changed, vanished, task_rows, req_servers, req_rows,
-     u0, u1, rows, nbytes, pieces, w0, w1, w_bytes, perm_rebuilt) = rec
+     u0, u1, rows, nbytes, pieces, w0, w1, w_rows, w_bytes, w_flag) = rec
     p = "planner:ingest"
     diff = {"round": rnd, "parent": p, "walked": walked,
             "task_changed": task_changed, "req_changed": req_changed,
@@ -311,10 +318,15 @@ def _ingest_spans(rec: tuple) -> list:
         out.append((p + ".upload", u0, u1, {"round": rnd, "parent": p,
                                             "rows": rows, "bytes": nbytes,
                                             "pieces": pieces}))
-    if w0 is not None:
+    if w0 is not None and w_rows is None:
         out.append((p + ".reqwin", w0, w1, {"round": rnd, "parent": p,
                                             "bytes": w_bytes,
-                                            "perm_rebuilt": perm_rebuilt}))
+                                            "perm_rebuilt": w_flag}))
+    elif w0 is not None:
+        out.append((p + ".reqrows", w0, w1, {"round": rnd, "parent": p,
+                                             "rows": w_rows,
+                                             "bytes": w_bytes,
+                                             "order_uploaded": w_flag}))
     out.append((p, t0, t3, {"round": rnd, "parent": None, "path": path,
                             "walked": walked}))
     return out
@@ -324,13 +336,15 @@ def _plan_spans(rec: tuple) -> list:
     """The spans of one plan's trace record (``Tracer.defer``): the plan,
     its device plan's enqueue and readback (or the host tier's sweep and
     auction) and the extraction."""
-    rnd, t0, t1, t2, pairs, swept, e0, e1, e2, launches, nbytes = rec
+    (rnd, t0, t1, t2, pairs, swept, e0, e1, e2, launches, nbytes,
+     scanned) = rec
     p = "planner:plan"
     if e0 is not None:
         out = [(p + ".enqueue", e0, e1, {"round": rnd, "parent": p,
                                          "launches": launches}),
                (p + ".readback", e1, e2, {"round": rnd, "parent": p,
-                                          "bytes": nbytes})]
+                                          "bytes": nbytes,
+                                          "scanned": scanned})]
     else:
         out = [(p + ".host", t0, t1, {"round": rnd, "parent": p,
                                       "swept": swept})]
@@ -424,8 +438,10 @@ def _placement(devices, device) -> tuple:
 class _Staged:
     """A device buffer fed from a pinned host twin (on a card): numpy writes
     the host side, and each upload is one asynchronous host-to-device copy
-    of its first bytes, on its card's current stream. :meth:`wait` holds the
-    next write until the last copy has landed."""
+    of its first bytes, on its card's current stream, made together with
+    the event that marks it landed in one call
+    (:func:`staged_copy.upload`). :meth:`wait` holds the next write until
+    the last copy has landed."""
 
     def __init__(self, nbytes: int, device: torch.device) -> None:
         cuda = device.type == "cuda"
@@ -436,6 +452,8 @@ class _Staged:
             self.dev = torch.zeros((max(nbytes, 1),), dtype=torch.uint8,
                                    device=device)
             self._landed = torch.cuda.Event() if cuda else None
+            if cuda:
+                self._landed.record()  # created on this card
         self.np = self.host.numpy()
 
     def wait(self) -> None:
@@ -443,10 +461,11 @@ class _Staged:
             self._landed.synchronize()
 
     def upload(self, nbytes: int) -> None:
+        if self._landed is None:
+            self.dev[:nbytes].copy_(self.host[:nbytes])
+            return
         with _on(self.device):
-            self.dev[:nbytes].copy_(self.host[:nbytes], non_blocking=True)
-            if self._landed is not None:
-                self._landed.record()
+            _staged_copy.upload(self.dev, self.host, nbytes, self._landed)
 
 
 class _Piece:
@@ -515,6 +534,69 @@ class _Piece:
             (cp, cg))
 
 
+class _Requesters:
+    """The device tier's requester side, resident on the planning device
+    beside the task table: ``table`` [S * R, W] int32, one bitmask a
+    requester row (bit t of word t // 32: the row is valid and accepts type
+    t); the staged rows of the servers an ingest rewrote (``rows``: their
+    slots, then the rows' type-mask bytes as the host mirror holds them,
+    :func:`auction.delta_ints`), which the auction kernel's prologue packs
+    into the table before it builds the windows; and ``order`` (the slots
+    in use, then every slot in rank order), re-sent only when the
+    membership changes. The mirror's mask is all False on a row that is
+    not valid (``_pack_reqs``, ``_unregister`` and the ledger's packed rows
+    write the two together; :meth:`stage` checks it), so a row's mask
+    bytes are its accepting types, as ``_reqwin``'s ``req_mask &
+    req_valid`` reads them."""
+
+    def __init__(self, S: int, R: int, T: int, device: torch.device) -> None:
+        self.S, self.R, self.T = S, R, T
+        with _on(device):
+            self.table = torch.zeros((S * R, (T + 31) // 32),
+                                     dtype=torch.int32, device=device)
+        self.rows = _Staged(4 * _auction.delta_ints(S, R, T), device)
+        self.order = _Staged(4 * (S + 1), device)
+        self._rows_np = self.rows.np.view(np.int32)
+        #: slots whose staged rows the next plan applies
+        self.pending = np.zeros((0,), dtype=np.int64)
+        #: int32 tensors on the device: the staged rows, the rank order
+        self.delta = self.rows.dev.view(torch.int32)
+        self.order_dev = self.order.dev.view(torch.int32)
+
+    def stage(self, slots, mask, valid) -> tuple:
+        """Stage the rows of ``slots`` (with those still pending) from the
+        host mirror's ``mask`` [S * R, T], whose rows are all False where
+        ``valid`` [S * R] is (checked): one asynchronous copy. Returns (rows
+        staged, bytes)."""
+        R, T = self.R, self.T
+        slots = np.asarray(slots, dtype=np.int64)
+        if self.pending.size:
+            slots = np.union1d(self.pending, slots)
+        n = slots.size
+        rows = mask.reshape(self.S, -1)[slots]
+        # the mask bytes alone say which rows are valid
+        bad = np.flatnonzero(~valid.reshape(self.S, R)[slots])
+        assert not (bad.size and rows.reshape(n * R, T)[bad].any()), (
+            "a requester row that is not valid accepts types")
+        self.rows.wait()
+        self._rows_np[:n] = slots
+        self.rows.np[4 * n:4 * n + n * R * T] = rows.reshape(-1)
+        nbytes = 4 * _auction.delta_ints(n, R, T)
+        self.rows.upload(nbytes)
+        self.pending = slots
+        return n * R, nbytes
+
+    def stage_order(self, slot_seq, nused: int) -> int:
+        """Stage the rank order: ``nused`` slots in use, then ``slot_seq``.
+        Returns the bytes."""
+        self.order.wait()
+        buf = self.order.np.view(np.int32)
+        buf[0] = nused
+        buf[1:1 + self.S] = slot_seq
+        self.order.upload(4 * (self.S + 1))
+        return 4 * (self.S + 1)
+
+
 class DistributedAssignmentSolver:
     """Host wrapper mirroring AssignmentSolver.solve() but with the task
     table device-resident and cut into shards, updated incrementally from
@@ -550,9 +632,10 @@ class DistributedAssignmentSolver:
 
     ``tracer`` (a :class:`~adlb_tpu_torch.runtime.trace.Tracer`, or None
     for off) records each round's phases as spans on the tracer's clock:
-    ``planner:ingest`` (children ``.diff``, ``.pack``, ``.upload``,
-    ``.reqwin``) and ``planner:plan`` (children ``.enqueue``,
-    ``.readback``, ``.extract``, or ``.host`` on the host tier), each with
+    ``planner:ingest`` (children ``.diff``, ``.pack``, ``.upload``, and
+    ``.reqrows`` on the device tier or ``.reqwin`` on the host tier) and
+    ``planner:plan`` (children ``.enqueue``, ``.readback``, ``.extract``,
+    or ``.host`` on the host tier), each with
     ``round`` (the plans made before it), ``parent`` and the phase's
     counts in its ``args``. It is a plain attribute: set it, or set it
     back to None, between rounds.
@@ -700,12 +783,17 @@ class DistributedAssignmentSolver:
         self._merged: Optional[torch.cuda.Event] = None
         #: runs this solver copied to the planning device (gather route)
         self.gather_copies = 0
-        # device-tier requester tables (rebuilt when reqs change):
-        # compacted reqwin + lengths + initial open vector, one upload
-        self._rwc: Optional[np.ndarray] = None
-        self._open0: Optional[np.ndarray] = None
-        self._reqbuf: Optional[_Staged] = None
-        self._dev_req: Optional[tuple] = None
+        # device tier: the requester table resident on the planning device
+        # (the auction kernel builds the windows from it), the slots whose
+        # requester rows changed since the last ingest, and the last device
+        # plan's windows as physical requester rows, [T, C + 1] (-1 past a
+        # window, its length in column C)
+        self._reqs: Optional[_Requesters] = None
+        self._req_dirty_si: set = set()
+        self._plan_rows: Optional[np.ndarray] = None
+        #: the requester rows the last device plan's windows took in (up to
+        #: the row that filled the last window, or every row in use)
+        self.last_scanned: Optional[int] = None
         # the kernels' buffers on a card: the candidates (both tiers; one per
         # piece, _cand_work with logical shards) and the auction (device tier)
         self._cand_work: Optional[_candidates.Workspace] = None
@@ -767,6 +855,11 @@ class DistributedAssignmentSolver:
             return
         dev, K, T, C, D = self.device, self.K, self.T, self.C, self.D
         ns, Sl = self.nshards, self._Sl
+        if dev.type == "cuda":
+            # every source this solver loads, one nvcc each, all at once
+            _cuda_build.build_all(
+                [_candidates.SOURCE, _staged_copy.SOURCE]
+                + ([_auction.SOURCE] if self.auction == "device" else []))
         if self.devices is None:
             piece = _Piece(0, ns, Sl, K, T, D, dev)
             self._pieces = [piece]
@@ -779,14 +872,7 @@ class DistributedAssignmentSolver:
                 self._build_merge(pieces)
             self._pieces = pieces
         if self.auction == "device":
-            U = T * C
-            self._req_bytes = 4 * T * C + 4 * T + U + 1
-            self._reqbuf = _Staged(self._req_bytes, dev)
-            b = self._reqbuf.dev
-            self._dev_req = (
-                b[:4 * T * C].view(torch.int32).view(T, C),
-                b[4 * T * C:4 * T * (C + 1)].view(torch.int32),
-                b[4 * T * (C + 1):self._req_bytes].view(torch.bool))
+            self._reqs = _Requesters(self.S, self.R, T, dev)
             if dev.type == "cuda":
                 self._work = _auction.Workspace(T, C, self.m, dev)
 
@@ -880,6 +966,7 @@ class DistributedAssignmentSolver:
             for i in range(self.R):
                 self._req_ref[base + i] = None
             self._reqs_dirty = True
+            self._req_dirty_si.add(si)
         self._task_cache.pop(s, None)
         self._req_cache.pop(s, None)
         self._task_stamp.pop(s, None)
@@ -946,6 +1033,7 @@ class DistributedAssignmentSolver:
             self._req_ref[i] = (s, rank, rqseqno)
         self._req_cache[s] = reqs
         self._reqs_dirty = True
+        self._req_dirty_si.add(si)
 
     # ------------------------------------------------------------------
     def ingest(self, snapshots: dict) -> int:
@@ -1039,10 +1127,13 @@ class DistributedAssignmentSolver:
 
     def _finish_ingest(self, changed: list) -> Optional[tuple]:
         """Shared ingest tail (tuple and view paths): ship changed rows,
-        patch or dirty the host tier's merged candidate lists, rebuild
-        the requester slot windows. With a tracer, returns the end of the
-        ingest's trace record: the upload's and the windows' readings and
-        counts (Nones for a step that did not run)."""
+        patch or dirty the host tier's merged candidate lists; on the host
+        tier rebuild the requester slot windows, on the device tier stage
+        the changed requester rows (and the rank order after a membership
+        change) for the auction kernel, which builds the windows. With a
+        tracer, returns the end of the ingest's trace record: the upload's
+        and the windows' or requester rows' readings and counts (Nones for
+        a step that did not run)."""
         tr = self.tracer
         up, win = _NO_UPLOAD, _NO_REQWIN
         if changed:
@@ -1062,42 +1153,58 @@ class DistributedAssignmentSolver:
                 self._cand_dirty = True
             else:
                 self._patch_candidates(changed)
-        if self._reqs_dirty:
+        if self.auction == "device":
+            if self._req_dirty_si or self._row_perm is None:
+                t0 = clock()
+                rows = nbytes = 0
+                order = self._row_perm is None
+                if order:
+                    slot_seq = self._rank_order()
+                    nbytes = self._reqs.stage_order(slot_seq, len(self._si))
+                if self._req_dirty_si:
+                    rows, n = self._reqs.stage(sorted(self._req_dirty_si),
+                                               self._req_mask,
+                                               self._req_valid)
+                    nbytes += n
+                    self._req_dirty_si.clear()
+                self._reqs_dirty = False
+                if tr is not None:
+                    win = (t0, clock(), rows, nbytes, order)
+        elif self._reqs_dirty:
             t0 = clock()
             perm_rebuilt = self._row_perm is None
             if perm_rebuilt:
-                # rank-sorted slots first, then the unused slots (all
-                # their rows invalid — order among them is irrelevant)
-                used = sorted(self._si.items())  # (rank, si) rank-asc
-                rest = sorted(
-                    set(range(self.S)) - {si for _, si in used})
-                slot_seq = np.asarray(
-                    [si for _, si in used] + rest, dtype=np.int64)
-                self._row_perm = (
-                    slot_seq[:, None] * self.R
-                    + np.arange(self.R, dtype=np.int64)[None, :]
-                ).reshape(-1)
+                self._rank_order()
             self._rw, self._lens = _reqwin(
                 self._req_mask, self._req_valid, self.T, self.C,
                 self._row_perm)
-            if self.auction == "device":
-                self._build_req_tables()
             self._reqs_dirty = False
+            self._req_dirty_si.clear()
             if tr is not None:
-                win = (t0, clock(), self._req_bytes
-                       if self.auction == "device" else 0, perm_rebuilt)
+                win = (t0, clock(), None, 0, perm_rebuilt)
         return None if tr is None else up + win
 
-    def _build_req_tables(self) -> None:
-        """Device-tier requester tables (:func:`_compact_reqwin`), then one
-        upload of the tables, the lengths and the open vector."""
-        self._rwc, self._open0 = _compact_reqwin(self._rw)
-        self._reqbuf.wait()
-        b, tc = self._reqbuf.np, 4 * self.T * self.C
-        b[:tc].view(np.int32)[:] = self._rwc.reshape(-1)
-        b[tc:tc + 4 * self.T].view(np.int32)[:] = self._lens
-        b[tc + 4 * self.T:self._req_bytes] = self._open0
-        self._reqbuf.upload(self._req_bytes)
+    def _rank_order(self) -> np.ndarray:
+        """The server slots in rank order, then the unused slots (all their
+        rows invalid — order among them is irrelevant); sets ``_row_perm``,
+        the requester rows in that order (see :func:`_reqwin`)."""
+        used = sorted(self._si.items())  # (rank, si) rank-asc
+        rest = sorted(set(range(self.S)) - {si for _, si in used})
+        slot_seq = np.asarray([si for _, si in used] + rest, dtype=np.int64)
+        self._row_perm = (
+            slot_seq[:, None] * self.R
+            + np.arange(self.R, dtype=np.int64)[None, :]).reshape(-1)
+        return slot_seq
+
+    def host_windows(self) -> tuple:
+        """The requester windows as the host builds them from its mirror
+        (:func:`_reqwin` in rank order): (reqwin [T, C] physical rows,
+        lens [T]). The host tier plans over them; on the device tier they
+        are what the auction kernel's prologue builds."""
+        if self._row_perm is None:
+            self._rank_order()
+        return _reqwin(self._req_mask, self._req_valid, self.T, self.C,
+                       self._row_perm)
 
     def _ingest_view(self, view) -> int:
         """Delta ingest from the engine's array-resident host ledger:
@@ -1179,6 +1286,7 @@ class DistributedAssignmentSolver:
             for i in range(R):
                 self._req_ref[base + i] = rrefs[i]
             self._reqs_dirty = True
+            self._req_dirty_si.add(si)
             rpacked.append(slot)
         # plan() keeps recording its touches for the tuple path; the
         # view path's generations already carry them — drop so the set
@@ -1338,13 +1446,18 @@ class DistributedAssignmentSolver:
             if self._merged is not None:
                 with _on(self.device):
                     self._merged.record()
-        rwc, lens, open0 = self._dev_req
-        return _auction.auction(gp, gg, rwc, lens, open0, self.rounds, self.m,
-                                work=self._work)
+        rq = self._reqs
+        out = _auction.auction_windows(
+            gp, gg, rq.table, rq.order_dev, rq.delta, rq.pending.size,
+            self.rounds, self.m, self.C, work=self._work)
+        rq.pending = rq.pending[:0]
+        return out
 
     def _device_plan(self) -> np.ndarray:
-        """:meth:`_enqueue_device_plan`, then one [T, C+1] readback: the
-        host blocked until the device's work and the copy have landed."""
+        """:meth:`_enqueue_device_plan`, then one readback of its output:
+        the host blocked until the device's work and the copy have landed.
+        Returns the committed gids [T, C]; keeps each slot's requester row
+        for the extraction."""
         tr = self.tracer
         if tr is not None:
             launches = (_candidates.launches + _candidates.merge_launches
@@ -1352,13 +1465,17 @@ class DistributedAssignmentSolver:
         t0 = clock()
         out = self._enqueue_device_plan()
         t1 = clock()
-        assigned = out.cpu().numpy()
+        flat = out.cpu().numpy()
+        T, C = self.T, self.C
+        n = T * (C + 1)
+        self._plan_rows = flat[n:2 * n].reshape(T, C + 1)
+        self.last_scanned = int(flat[2 * n + 1])
         if tr is not None:
             self._plan_readings = (
                 t0, t1, clock(), _candidates.launches
                 + _candidates.merge_launches + _auction.launches - launches,
-                assigned.nbytes)
-        return assigned[:, : self.C]
+                flat.nbytes, self.last_scanned)
+        return flat[:n].reshape(T, C + 1)[:, :C]
 
     def plan(self) -> list:
         """One fixed-shape planning round over the resident state."""
@@ -1393,7 +1510,8 @@ class DistributedAssignmentSolver:
         pairs = []
         t_idx, c_idx = np.nonzero(assigned >= 0)
         gids = assigned[t_idx, c_idx].tolist()
-        rids = self._rw[t_idx, c_idx].tolist()
+        rids = (self._rw if swept is not None
+                else self._plan_rows)[t_idx, c_idx].tolist()
         K = self.K
         for g, rid in zip(gids, rids):
             rank, ki = divmod(int(g), K)
@@ -1420,8 +1538,10 @@ class DistributedAssignmentSolver:
     def planner_counts(self) -> dict:
         """This solver's own counts, in the keys of the single-device
         solver's ``planner_counts`` (it makes no greedy-sweep solves, so
-        those are 0) plus its plans (``device_plans``: device tier,
-        ``host_plans``: host tier), the merge's route across devices
+        those are 0) plus its plans (``device_plans``: device tier, each
+        with its requester windows built by the auction, so
+        ``device_windows`` is the same count; ``host_plans``: host tier),
+        the merge's route across devices
         (``merge_route``: ``"in_place"``, ``"gather"``, or None with logical
         shards or before it is built) and the runs it copied to the planning
         device (``gather_copies``)."""
@@ -1431,6 +1551,7 @@ class DistributedAssignmentSolver:
                 "solves_checked": 0, "solves_wrong": 0, "device_shapes": [],
                 "device_plans": self.solve_count if device else 0,
                 "host_plans": 0 if device else self.solve_count,
+                "device_windows": self.solve_count if device else 0,
                 "merge_route": self.merge_route,
                 "gather_copies": self.gather_copies}
 

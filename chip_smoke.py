@@ -715,6 +715,29 @@ def packed_keys(gathered):
     return _pack2(-ap, ag)
 
 
+def plan_auction(solver, gp, gg):
+    """The auction as a device-tier solver's device plan launches it, on
+    ``gp, gg``: the windows built in the kernel's prologue from the resident
+    requester table, no rows staged (a launch that can be repeated)."""
+    rq = solver._reqs
+    return solver._work.launch_windows(gp, gg, rq.table, rq.order_dev,
+                                       rq.delta, 0, solver.rounds)
+
+
+def host_req_tables(solver) -> tuple:
+    """The requester tables of the auction without its prologue, as the host
+    built them before the prologue did (``_reqwin`` on the host mirror and
+    ``_compact_reqwin``): (rwc, lens, open0) on the planning device."""
+    import torch
+
+    from adlb_tpu_torch.balancer import distributed as dist
+
+    rw, lens = solver.host_windows()
+    rwc, open0 = dist._compact_reqwin(rw)
+    return tuple(torch.from_numpy(a).to(solver.device)
+                 for a in (rwc, lens, open0))
+
+
 def time_across_cards(solver, candidates, link_rate=None) -> dict:
     """On a device-tier solver split across cards: each card's kernel-A
     launch (median of CUDA-event windows on that card's current stream);
@@ -735,8 +758,7 @@ def time_across_cards(solver, candidates, link_rate=None) -> dict:
 
     T, D = solver.T, solver.D
     plan = solver.device
-    rwc, lens, open0 = solver._dev_req
-    mw, aw = solver._merge_work, solver._work
+    mw = solver._merge_work
     src = [p.work.cands[:, 0] for p in solver._pieces]
     for _ in range(3):
         solver._enqueue_device_plan()
@@ -756,7 +778,7 @@ def time_across_cards(solver, candidates, link_rate=None) -> dict:
         mw.launch()
         if solver._merged is not None:
             solver._merged.record()
-        aw.launch(mw.gp, mw.gg, rwc, lens, open0, solver.rounds)
+        plan_auction(solver, mw.gp, mw.gg)
 
     out = {"merge_route": solver.merge_route, "kernel_a_ms": []}
     for piece in solver._pieces:
@@ -772,8 +794,8 @@ def time_across_cards(solver, candidates, link_rate=None) -> dict:
             out["event_wait_ms"] = time_ms(solver._wait_runs, reps=50)
         out["merge_ms"] = time_ms(mw.launch, reps=50)
         out["merge_ms_back_to_back"] = back_to_back_ms(mw.launch, reps=200)
-        out["auction_ms"] = time_ms(lambda: aw.launch(
-            mw.gp, mw.gg, rwc, lens, open0, solver.rounds), reps=50)
+        out["auction_ms"] = time_ms(
+            lambda: plan_auction(solver, mw.gp, mw.gg), reps=50)
         out["device_plan_ms"] = time_ms(solver._enqueue_device_plan,
                                         reps=50)
         out["device_plan_launches_ms"] = time_ms(launches_only, reps=50)
@@ -1123,9 +1145,13 @@ def auction_instance(rng, T, m, nshards, rounds, sl=4, K=8, R=4, slots=None,
     its per-shard candidates merged (the port's ``_shard_candidates`` and
     ``_merge_shard_major``), random requester masks (or one random type per
     requester, as plan_bench parks them) and their slot tables. Returns
-    (numpy twin inputs, tensors on ``device``, D): the tensors hold the full
-    [T, nshards * D] merge; the device plan hands the auction its first D
-    columns."""
+    (numpy twin inputs, tensors on ``device``, D, the requester table's
+    tensors on ``device``): the tensors hold the full [T, nshards * D]
+    merge and the host's compacted slot tables; the device plan hands the
+    auction its first D columns. The requester table is empty, its rank
+    order the slots 0 .. S - 1 (R rows a slot, so the windows are
+    ``_reqwin``'s), and every slot's rows are staged for the first launch
+    to pack (:func:`auction.delta_ints`)."""
     import torch
 
     from adlb_tpu_torch.balancer import distributed as dist
@@ -1150,7 +1176,14 @@ def auction_instance(rng, T, m, nshards, rounds, sl=4, K=8, R=4, slots=None,
     rwc, open0 = dist._compact_reqwin(rw)
     ins = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
            for a in (gp, gg, rwc, lens, open0)]
-    return (gp, gg, rw, lens, rv), ins, D
+    flags = (rm & rv[:, None]).astype(np.uint8).reshape(-1)
+    flags = np.concatenate([flags, np.zeros(-flags.size % 4, np.uint8)])
+    win = [torch.from_numpy(a).to(device) for a in (
+        np.zeros((NR, (T + 31) // 32), np.int32),
+        np.arange(-1, S, dtype=np.int32),
+        np.concatenate([np.arange(S, dtype=np.int32), flags.view(np.int32)]))]
+    win[1][0] = S
+    return (gp, gg, rw, lens, rv), ins, D, win
 
 
 def auction_cases():
@@ -1191,9 +1224,12 @@ def tier(work) -> str:
 
 def check_auction(auction, report):
     """Phase 4: the auction kernel against its plain version and the numpy
-    twin on every case, over the full [T, nshards * D] merge and over its
-    first D columns (what the device plan hands over), both equal to the
-    numpy twin over the full merge. Returns the largest absolute difference
+    twin on every case, the whole requester table staged for the first
+    launch, over the full [T, nshards * D] merge and over its first D
+    columns (what the device plan hands over): the whole output equal to
+    the plain version's, the windows to ``_reqwin``'s, the commits to
+    ``auction_torch``'s over the host's compacted tables and to the numpy
+    twin's over the full merge. Returns the largest absolute difference
     seen."""
     import torch
 
@@ -1202,23 +1238,34 @@ def check_auction(auction, report):
     err = 0
     for name, T, m, ns, rounds, sl, slots, one in auction_cases():
         rng = np.random.default_rng(T * 1000 + m * 10 + ns)
-        (gp, gg, rw, lens, rv), ins, D = auction_instance(
+        (gp, gg, rw, lens, rv), ins, D, win = auction_instance(
             rng, T, m, ns, rounds, sl=sl, slots=slots, one_type=one)
         C = rw.shape[1]
+        S, n = win[1].shape[0] - 1, T * (C + 1)
         want = dist._host_auction(gp, gg, rw, lens, rv.copy(), rounds, m)
         work = auction.Workspace(T, C, m, ins[0].device)
-        cut = [x[:, :D].contiguous() for x in ins[:2]] + ins[2:]
-        for lists in (ins, cut):
-            got = work.launch(*lists, rounds).clone()
-            torch.cuda.synchronize()
-            plain = auction.auction_torch(*lists, rounds, m)
+        cpu_win = [x.cpu() for x in win]
+        cut = [x[:, :D].contiguous() for x in ins[:2]]
+        for lists, n_delta in ((ins[:2], S), (cut, 0)):
+            got = auction.auction_windows(*lists, *win, n_delta, rounds, m,
+                                          C, work=work).cpu()
+            cpu_lists = [x.cpu() for x in lists]
+            plain = auction.auction_windows(*cpu_lists, *cpu_win, n_delta,
+                                            rounds, m, C)
             err = max(err, int((got.long() - plain.long()).abs().max()))
+            given = auction.auction_torch(
+                *cpu_lists, *[x.cpu() for x in ins[2:]], rounds, m)
+            rows = got[n:2 * n].view(T, C + 1).numpy()
             if not (torch.equal(got, plain)
-                    and np.array_equal(got.cpu().numpy()[:, :C], want)):
+                    and torch.equal(got[:n].view(T, C + 1), given)
+                    and np.array_equal(given.numpy()[:, :C], want)
+                    and np.array_equal(rows[:, :C], rw)
+                    and np.array_equal(rows[:, C], lens)):
                 raise AssertionError(f"auction kernel disagrees on case "
                                      f"{name}, L={lists[0].shape[1]}")
         report(f"phase 4: auction {name} C={C} L={gp.shape[1]} and L=D={D} "
-               f"rounds={rounds}: kernel == plain == host_auction, "
+               f"rounds={rounds}: kernel == plain (windows == reqwin, "
+               f"commits == auction_torch == host_auction), "
                f"{int((want >= 0).sum())} commits in "
                f"{int(work.rounds_run)} rounds, {work.threads} threads, "
                f"working set in {tier(work)}")
@@ -1407,20 +1454,22 @@ def timing_script():
 def device_plan_split(solver, reps: int = 50) -> dict:
     """A device-tier solver's device plan on its resident state, as it
     runs: ``candidates_ms`` (one launch: every shard's candidates and their
-    merge into [T, D]), ``auction_ms`` (one launch) and ``device_plan_ms``
-    (both), medians of per-call CUDA-event windows, each with its device
-    time per call in a CUDA graph beside it (``*_graph_ms``, no host launch
-    work in the window); no readback. Its launches count as any other:
-    call it after the counts were read."""
+    merge into [T, D]), ``auction_ms`` (one launch, the requester windows
+    built in its prologue; ``scripts/time_auction.py --parent`` times a
+    parent's auction over the host-built tables beside it) and
+    ``device_plan_ms`` (candidates and auction), medians of per-call
+    CUDA-event windows, each
+    with its device time per call in a CUDA graph beside it
+    (``*_graph_ms``, no host launch work in the window); no readback. Its
+    launches count as any other: call it after the counts were read."""
     blocks = solver._dev_blocks
-    rwc, lens, open0 = solver._dev_req
-    cw, aw = solver._cand_work, solver._work
+    cw = solver._cand_work
 
     def cands():
         cw.launch(*blocks, True)
 
     def auct():
-        aw.launch(cw.gp, cw.gg, rwc, lens, open0, solver.rounds)
+        plan_auction(solver, cw.gp, cw.gg)
 
     def both():
         cands()
@@ -1451,7 +1500,7 @@ def time_device_plan(solver, auction, candidates, report):
 
     T, C, D, m = solver.T, solver.C, solver.D, solver.m
     blocks = solver._dev_blocks
-    rwc, lens, open0 = solver._dev_req
+    rwc, lens, open0 = host_req_tables(solver)
     cw, aw = solver._cand_work, solver._work
     cpu_blocks = [b.cpu().numpy() for b in blocks]
     cp_np, cg_np = candidates_numpy(*cpu_blocks, T, D)
@@ -1467,13 +1516,18 @@ def time_device_plan(solver, auction, candidates, report):
             and np.array_equal(gp.cpu().numpy(), full_p[:, :D])
             and np.array_equal(gg.cpu().numpy(), full_g[:, :D])):
         raise AssertionError("candidates kernel disagrees at the 10k row")
-    got = aw.launch(gp, gg, rwc, lens, open0, solver.rounds).clone()
+    built = plan_auction(solver, gp, gg).cpu().numpy()
     rounds_run = int(aw.rounds_run)
     plain = auction.auction_torch(gp, gg, rwc, lens, open0, solver.rounds, m)
-    want = dist._host_auction(full_p, full_g, solver._rw, solver._lens,
+    rw, host_lens = solver.host_windows()
+    want = dist._host_auction(full_p, full_g, rw, host_lens,
                               solver._req_valid.copy(), solver.rounds, m)
-    if not (torch.equal(got, plain)
-            and np.array_equal(got.cpu().numpy()[:, :C], want)):
+    n = T * (C + 1)
+    if not (np.array_equal(built[:n].reshape(T, C + 1), plain.cpu().numpy())
+            and np.array_equal(plain.cpu().numpy()[:, :C], want)
+            and np.array_equal(built[n:2 * n].reshape(T, C + 1)[:, :C], rw)
+            and np.array_equal(built[n:2 * n].reshape(T, C + 1)[:, C],
+                               host_lens)):
         raise AssertionError("auction kernel disagrees at the 10k row")
     c0, a0 = candidates.launches, auction.launches
     solver._device_plan()
@@ -1497,7 +1551,7 @@ def time_device_plan(solver, auction, candidates, report):
 
     def plan_on_card():
         cw.launch(*blocks, True)
-        aw.launch(cw.gp, cw.gg, rwc, lens, open0, solver.rounds)
+        plan_auction(solver, cw.gp, cw.gg)
 
     # the candidates launch reads the task blocks once and writes gp, gg
     cand_bytes = (sum(b.numel() * 4 for b in blocks) + 2 * T * D * 4)
@@ -1506,8 +1560,7 @@ def time_device_plan(solver, auction, candidates, report):
         "candidates_ms_back_to_back": back_to_back_ms(
             lambda: cw.launch(*blocks, True), reps=200),
         "ms_back_to_back": back_to_back_ms(
-            lambda: aw.launch(gp, gg, rwc, lens, open0, solver.rounds),
-            reps=200),
+            lambda: plan_auction(solver, gp, gg), reps=200),
         "device_plan_ms_back_to_back": back_to_back_ms(plan_on_card, reps=100),
         "candidates_plain_ms": time_ms(
             lambda: candidates.candidates_torch(*blocks, T, D, True), reps=50),
@@ -1552,8 +1605,8 @@ def time_device_plan(solver, auction, candidates, report):
            f"{out['candidates_bound_ms']:.6f} ms, bytes), auction "
            f"{out['auction_ms']:.4f} ms (back to back "
            f"{out['ms_back_to_back']:.4f}, in a CUDA graph "
-           f"{out['auction_graph_ms']:.4f}; bound {out['bound_ms']:.6f} ms, "
-           f"bytes; chain bound {out['chain_bound_ms']:.6f} ms = "
+           f"{out['auction_graph_ms']:.4f}; bound "
+           f"{out['bound_ms']:.6f} ms, bytes; chain bound {out['chain_bound_ms']:.6f} ms = "
            f"{rounds_run} rounds x {auction.BARRIERS_PER_ROUND} barriers x "
            f"{bar * 1e3:.4f} us at {aw.threads} threads), "
            f"{out['commits']} "
@@ -2955,9 +3008,11 @@ def main_across_cards(report) -> dict:
     returns its kernel line entry."""
     from adlb_tpu_torch.balancer import auction, candidates, cuda_build
     from adlb_tpu_torch.balancer import greedy_sweep as gs
+    from adlb_tpu_torch.balancer import staged_copy
 
     t0 = time.perf_counter()
-    cuda_build.build_all([gs.SOURCE, candidates.SOURCE, auction.SOURCE])
+    cuda_build.build_all([gs.SOURCE, candidates.SOURCE, auction.SOURCE,
+                          staged_copy.SOURCE])
     built = [gs.build(), candidates.build(), auction.build()]
     report(f"phase 1: built {', '.join(so.name for so in built)} in "
            f"{time.perf_counter() - t0:.2f} s")
@@ -3015,10 +3070,12 @@ def main(argv=None) -> int:
     native_thread = threading.Thread(
         target=lambda: native.update(paths=build_native()), daemon=True)
     native_thread.start()
-    # one nvcc each, all together (and the barrier probe that times the
-    # auction's chain bound)
+    # one nvcc each, all together (with the sharded planner's staged copy
+    # and the barrier probe that times the auction's chain bound)
+    from adlb_tpu_torch.balancer import staged_copy
+
     cuda_build.build_all([gs.SOURCE, candidates.SOURCE, auction.SOURCE,
-                          timing_script().PROBE_SOURCE])
+                          staged_copy.SOURCE, timing_script().PROBE_SOURCE])
     built = [gs.build(), candidates.build(), auction.build()]
     report(f"phase 1: built {', '.join(so.name for so in built)} in "
            f"{time.perf_counter() - t0:.2f} s")

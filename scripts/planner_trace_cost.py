@@ -1,7 +1,7 @@
 """The sharded planner's tracing cost and its phase split, at the size and
 traffic of the benchmark's ``planner131k.churn`` cell, in one process.
 
-    python3 scripts/planner_trace_cost.py --parent DIR [--seconds S]
+    python3 scripts/planner_trace_cost.py [--parent DIR] [--seconds S]
         [--rounds N] [--seed N] [--device cuda|cpu] [--servers N]
         [--requesters N]
 
@@ -10,8 +10,11 @@ traffic (``benchmark/churn.py``) from ``--seed``:
 
 1. The split: ``--rounds`` churn rounds with a ``runtime.trace.Tracer``
    attached; each phase's spans summed over the rounds, over their number
-   (ms a round), the share of walked servers that had changed, and the
-   children's sums against ``last_ingest_ms`` and ``last_solve_ms``.
+   (ms a round), and the median and 90th percentile of the rounds in which
+   the phase ran (a mean takes in the collector's pauses wherever they
+   land), the share of walked servers that had changed, the requester
+   rows shipped and ``scanned`` a round, and the children's sums against
+   ``last_ingest_ms`` and ``last_solve_ms``.
 2. The cost, as an A/B in one process on one state: the snapshots of two
    more churn rounds as their ingests found them (A and B: each with its
    round's bursts on 8 servers, B with A's plan consumed) are ingested and
@@ -22,7 +25,9 @@ traffic (``benchmark/churn.py``) from ``--seed``:
    ``DistributedAssignmentSolver`` of ``DIR``'s ``balancer/distributed.py``,
    an unpacked parent commit, whose other modules are this checkout's: the
    solver's class is switched) and ``off`` (this checkout, tracer None);
-   for the other half, every 40 rounds between ``off`` and ``on`` (the
+   for the other half (all of it without ``--parent``; a parent whose
+   solver keeps other state than this checkout's cannot take its place
+   on one state), every 40 rounds between ``off`` and ``on`` (the
    tracer attached, its events kept as a window's are, so that the
    collections its events cause land in its own blocks). Each round is
    timed from the call of ``ingest`` to the pairs ``plan`` returns on the
@@ -55,9 +60,12 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 PHASES = ("planner:ingest", "planner:ingest.diff", "planner:ingest.pack",
-          "planner:ingest.upload", "planner:ingest.reqwin", "planner:plan",
-          "planner:plan.enqueue", "planner:plan.readback",
-          "planner:plan.extract")
+          "planner:ingest.upload", "planner:ingest.reqwin",
+          "planner:ingest.reqrows", "planner:plan", "planner:plan.enqueue",
+          "planner:plan.readback", "planner:plan.extract")
+#: the ingest's children: the host tier rebuilds the requester windows
+#: (``.reqwin``), the device tier stages the requester rows (``.reqrows``)
+INGEST_CHILDREN = PHASES[1:6]
 
 
 def load_parent(parent: Path):
@@ -73,20 +81,32 @@ def load_parent(parent: Path):
 def phase_split(events: list, rounds: int, ingest_ms: float,
                 solve_ms: float) -> dict:
     dur: dict = {}
-    walked = changed = 0
+    each: dict = {}
+    walked = changed = scanned = rows = 0
     for e in events:
         dur[e["name"]] = dur.get(e["name"], 0.0) + e["dur"] * 1e-3
+        each.setdefault(e["name"], []).append(e["dur"] * 1e-3)
         if e["name"] == "planner:ingest.diff":
             walked += e["args"]["walked"]
             changed += e["args"]["servers_changed"]
+        elif e["name"] == "planner:plan.readback":
+            scanned += e["args"].get("scanned") or 0
+        elif e["name"] == "planner:ingest.reqrows":
+            rows += e["args"]["rows"]
     ms = {k: dur.get(k, 0.0) / rounds for k in PHASES}
-    return {"rounds": rounds, "ms_per_round": ms,
+    quantiles = {k: {"median": statistics.median(v),
+                     "p90": statistics.quantiles(v, n=10)[-1]
+                     if len(v) > 1 else v[0], "rounds": len(v)}
+                 for k, v in each.items() if k in PHASES}
+    return {"rounds": rounds, "ms_per_round": ms, "ms_quantiles": quantiles,
             "last_ingest_ms": ingest_ms / rounds,
             "last_solve_ms": solve_ms / rounds,
             "diff_useful_pct": 100.0 * changed / walked if walked else None,
             "servers_walked_per_round": walked / rounds,
+            "scanned_per_round": scanned / rounds,
+            "requester_rows_shipped_per_round": rows / rounds,
             "ingest_children_over_ingest": sum(
-                ms[k] for k in PHASES[1:5]) / (ingest_ms / rounds),
+                ms[k] for k in INGEST_CHILDREN) / (ingest_ms / rounds),
             "enqueue_readback_over_solve": (
                 ms["planner:plan.enqueue"] + ms["planner:plan.readback"])
             / (solve_ms / rounds)}
@@ -125,7 +145,7 @@ def card_label(device: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True,
+    ap.add_argument("--parent", default=None,
                     help="an unpacked checkout of the parent commit")
     ap.add_argument("--seconds", type=float, default=120.0,
                     help="time of the A/B, all codes together")
@@ -153,7 +173,8 @@ def main(argv=None) -> int:
         conf["servers"] = args.servers
     if args.requesters:
         conf["max_requesters"] = args.requesters
-    parent = load_parent(Path(args.parent)).DistributedAssignmentSolver
+    parent = (load_parent(Path(args.parent)).DistributedAssignmentSolver
+              if args.parent else None)
     S, ns = conf["servers"], conf["nshards"]
     sol = DistributedAssignmentSolver(
         conf["types"], conf["max_tasks"], conf["max_requesters"],
@@ -238,19 +259,22 @@ def main(argv=None) -> int:
     # off against the parent: the code turns over every two rounds, so
     # each sees A and B; the tracer's collections would land in whichever
     # round comes next, so on against off runs apart, in blocks
-    off = cost("parent", "off", 2, turns(
-        [("parent", parent, None), ("off", DistributedAssignmentSolver,
-                                     None)], args.seconds / 2, 2))
-    on_off = cost("off", "on", 40, turns(
+    costs = {}
+    if parent is not None:
+        costs["off-parent"] = cost("parent", "off", 2, turns(
+            [("parent", parent, None), ("off", DistributedAssignmentSolver,
+                                         None)], args.seconds / 2, 2))
+    costs["on-off"] = cost("off", "on", 40, turns(
         [("off", DistributedAssignmentSolver, None),
-         ("on", DistributedAssignmentSolver, on)], args.seconds / 2, 40))
+         ("on", DistributedAssignmentSolver, on)],
+        args.seconds / 2 if parent is not None else args.seconds, 40))
     gc.unfreeze()
     out = {
         "device": args.device, "card": card_label(args.device),
         "servers": S, "requesters": conf["max_requesters"],
         "seed": args.seed, "split": split,
         "ab_rows_changed_per_round": statistics.fmean(rows),
-        "cost_us": {"off-parent": off, "on-off": on_off},
+        "cost_us": costs,
         "on_events": len(on.events), "dropped": on.dropped,
     }
     print(json.dumps(out), flush=True)

@@ -6,8 +6,8 @@ of ``_reqwin``, exactly the commits of the JAX package's numpy twin
 ``_host_auction`` (the oracle the JAX package fuzz-pins its on-device loop
 against), over fuzzed instances spanning the type count, the cand width m,
 the shard count and C from ``_slot_sizes``. Tolerance: exact equality
-(integer gids). On CPU tensors the dispatching ``auction``, the one the
-sharded solver calls, takes the plain version.
+(integer gids). On CPU tensors the dispatching ``auction_windows``, the
+one the sharded solver calls, takes the plain versions.
 """
 
 import numpy as np
@@ -50,7 +50,7 @@ def _instance(rng, T, m, nshards, rounds, Sl=3, K=6, R=3, dense=False):
     rwc, open0 = port._compact_reqwin(rw)
     tensors = tuple(torch.from_numpy(np.ascontiguousarray(a))
                     for a in (gp, gg, rwc, lens, open0))
-    return (gp, gg, rw, lens, rv), tensors
+    return (gp, gg, rw, lens, rv, rm), tensors
 
 
 CASES = [(T, m, ns) for T in (1, 4, 8, 24) for m in (1, 8, 32, 40)
@@ -61,7 +61,7 @@ CASES = [(T, m, ns) for T in (1, 4, 8, 24) for m in (1, 8, 32, 40)
 def test_auction_torch_equals_host_auction(T, m, nshards):
     rng = np.random.default_rng(1000 * T + 10 * m + nshards)
     for rounds in (1, 3, 16):
-        (gp, gg, rw, lens, rv), ins = _instance(rng, T, m, nshards, rounds)
+        (gp, gg, rw, lens, rv, _), ins = _instance(rng, T, m, nshards, rounds)
         want = ref._host_auction(gp, gg, rw, lens, rv.copy(), rounds, m)
         got = auction.auction_torch(*ins, rounds, m)
         assert got.shape == (T, rw.shape[1] + 1) and got.dtype == torch.int32
@@ -70,12 +70,27 @@ def test_auction_torch_equals_host_auction(T, m, nshards):
 
 
 def test_auction_dispatch_takes_the_plain_version_on_the_cpu():
+    """``auction_windows`` on CPU tensors, the requester table staged whole
+    (R = 3 rows a slot, the slots in index order): the windows and commits
+    of the JAX package's ``_reqwin`` and ``_host_auction``, no launch."""
     rng = np.random.default_rng(5)
-    (gp, gg, rw, lens, rv), ins = _instance(rng, 4, 8, 2, 16, dense=True)
+    (gp, gg, rw, lens, rv, rm), ins = _instance(rng, 4, 8, 2, 16,
+                                                dense=True)
     want = ref._host_auction(gp, gg, rw, lens, rv.copy(), 16, 8)
+    S, T, C = rm.shape[0] // 3, 4, rw.shape[1]
+    flags = (rm & rv[:, None]).astype(np.uint8).reshape(-1)
+    flags = np.concatenate([flags, np.zeros(-flags.size % 4, np.uint8)])
+    delta = np.concatenate([np.arange(S, dtype=np.int32),
+                            flags.view(np.int32)])
+    table = torch.zeros((3 * S, 1), dtype=torch.int32)
+    order = torch.from_numpy(np.arange(-1, S, dtype=np.int32))
+    order[0] = S
     launches = auction.launches
-    got = auction.auction(*ins, 16, 8)
-    assert np.array_equal(got[:, :-1].numpy(), want)
+    got = auction.auction_windows(*ins[:2], table, order,
+                                  torch.from_numpy(delta), S, 16, 8, C)
+    n = T * (C + 1)
+    assert np.array_equal(got[:n].view(T, C + 1)[:, :-1].numpy(), want)
+    assert np.array_equal(got[n:2 * n].view(T, C + 1)[:, :-1].numpy(), rw)
     assert (want >= 0).sum() > 10  # a real matching, not an empty one
     assert auction.launches == launches  # no kernel launch on the CPU
 
@@ -84,7 +99,7 @@ def test_auction_stops_after_a_round_without_commits():
     """Once every requester is served the loop exits: more rounds change
     nothing, and a single-round budget commits only the first wave."""
     rng = np.random.default_rng(6)
-    (gp, gg, rw, lens, rv), ins = _instance(rng, 4, 2, 2, 64, Sl=8, R=4,
+    (gp, gg, rw, lens, rv, _), ins = _instance(rng, 4, 2, 2, 64, Sl=8, R=4,
                                             dense=True)
     full = auction.auction_torch(*ins, 64, 2)
     assert torch.equal(full, auction.auction_torch(*ins, 1000, 2))
@@ -98,6 +113,7 @@ def test_auction_stops_after_a_round_without_commits():
 def test_auction_checks_its_inputs():
     rng = np.random.default_rng(7)
     _, (gp, gg, rwc, lens, open0) = _instance(rng, 2, 4, 1, 4)
+    order = torch.tensor([1, 0], dtype=torch.int32)
     with pytest.raises(ValueError, match="int32"):
         auction.auction_torch(gp.long(), gg, rwc, lens, open0, 4, 4)
     with pytest.raises(ValueError, match="lens"):
@@ -105,4 +121,5 @@ def test_auction_checks_its_inputs():
     with pytest.raises(ValueError, match="m must be"):
         auction.auction_torch(gp, gg, rwc, lens, open0, 4, 0)
     with pytest.raises(ValueError, match="no auction"):
-        auction.auction(gp.to("meta"), gg, rwc, lens, open0, 4, 4)
+        auction.auction_windows(gp.to("meta"), gg, rwc, order, order, 0, 4,
+                                4, rwc.shape[1])

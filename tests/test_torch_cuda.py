@@ -5,12 +5,21 @@ kernel reports against ``requester_classes``, one launch per device solve,
 and requester counts whose working set does not fit in shared memory (the
 kernel's scratch buffer in device memory).
 
-The auction: bit-equal to ``auction_torch`` and to the numpy twin
-``_host_auction`` on fuzzed instances (a multi-job type axis whose lists
-stay in device memory, two past shared memory), over the full merge and
-over the [T, D] lists the device plan hands over, the sharded solver's
-device tier equal to its host tier over churn rounds, and a failed build
-or launch raises.
+The auction (the requester windows built in the kernel's prologue from the
+resident requester table, then the rounds): on fuzzed instances whose
+requester table is staged whole (a multi-job type axis whose lists stay in
+device memory, two past shared memory), over the full merge and over the
+[T, D] lists the device plan hands over, bit-equal to its plain version,
+its windows to ``_reqwin`` and its commits to ``auction_torch`` over the
+host's compacted tables and to the numpy twin ``_host_auction``; the
+sharded solver's device tier equal to its host tier over churn rounds,
+and a failed build or launch raises. Bit-equal to its plain version on
+random tables (the benchmark cell's shape, the 10k row's, two mask words
+a row, past shared memory, empty windows), and over churn rounds
+(``window_churn.py``: joins and leaves, any-type requesters, multi-job
+types, a rare type, an empty table) at 1, 2 and 8 shards and across 2 and
+4 cards where present: windows equal to ``_reqwin`` on the host mirror,
+plans equal to the CPU device tier's and the host tier's.
 
 The candidates (with the cross-shard merge): per shard and merged, bit-equal
 to the plain version and to a numpy twin on fuzzed instances (truncated
@@ -55,6 +64,8 @@ from adlb_tpu_torch.balancer import greedy_sweep
 from adlb_tpu_torch.balancer import distributed as dist
 from adlb_tpu_torch.balancer import plan_bench
 from adlb_tpu_torch.balancer.solve import _NEG, AssignmentSolver, _host_greedy
+from window_churn import (CASES as CHURN_CASES, WindowChurn, check_windows,
+                          random_windows, solver_kwargs, staged_rows)
 
 
 def _random_instance(rng, nt, nr, t, pad=0.25):
@@ -208,7 +219,10 @@ def test_kernel_refuses_bad_inputs(card):
 def _auction_instance(rng, T, m, nshards, rounds, Sl=4, K=8, R=4,
                       slots=None):
     """Random task table -> per-shard candidates -> merged lists, random
-    requester masks -> slot tables: (numpy twin inputs, card tensors)."""
+    requester masks -> slot tables: (numpy twin inputs, card tensors gp,
+    gg, rwc, lens, open0, and the resident requester table's card tensors:
+    an empty table, the rank order 0 .. S - 1 and every slot's rows
+    staged, R a slot)."""
     S = nshards * Sl
     tp = rng.integers(-50, 50, (S, K)).astype(np.int32)
     tt = rng.integers(0, T, (S, K)).astype(np.int32)
@@ -222,11 +236,16 @@ def _auction_instance(rng, T, m, nshards, rounds, Sl=4, K=8, R=4,
         torch.from_numpy(rk).view(nshards, Sl), T, D)
     gp, gg = dist._merge_shard_major(cp.numpy(), cg.numpy())
     rv = rng.random(NR) < 0.9
-    rw, lens = dist._reqwin(rng.random((NR, T)) < 0.4, rv, T, C)
+    rm = rng.random((NR, T)) < 0.4
+    rw, lens = dist._reqwin(rm, rv, T, C)
     rwc, open0 = dist._compact_reqwin(rw)
     ins = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
            for a in (gp, gg, rwc, lens, open0)]
-    return (gp, gg, rw, lens, rv), ins
+    win = [torch.from_numpy(a).cuda() for a in (
+        np.zeros((NR, (T + 31) // 32), np.int32),
+        np.concatenate([[S], np.arange(S)]).astype(np.int32),
+        staged_rows(np.arange(S), rm, rv))]
+    return (gp, gg, rw, lens, rv), ins, win
 
 
 #: (T, m, nshards, rounds, servers per shard, slots per type): m = 1 and
@@ -244,40 +263,54 @@ AUCTION_CASES = [(1, 1, 1, 16, 4, None), (4, 8, 2, 16, 4, None),
 @pytest.mark.parametrize("T,m,nshards,rounds,sl,slots", AUCTION_CASES)
 def test_auction_kernel_matches_plain_and_host(card, T, m, nshards, rounds,
                                                sl, slots):
+    """One launch over the full merge with the whole requester table
+    staged, then one over the [T, D] lists the device plan hands over with
+    nothing staged: each bit-equal to the plain version, its windows equal
+    to ``_reqwin``, its commits to ``auction_torch`` over the host's sorted
+    compacted ids and to the numpy twin over the full merge."""
     rng = np.random.default_rng(T * 100 + m)
-    (gp, gg, rw, lens, rv), ins = _auction_instance(
+    (gp, gg, rw, lens, rv), ins, win = _auction_instance(
         rng, T, m, nshards, rounds, Sl=sl, slots=slots)
     C = rw.shape[1]
+    S, n, D = win[1].shape[0] - 1, T * (C + 1), C + m + 1
     work = auction.Workspace(T, C, m, card)
-    before = auction.launches
-    got = auction.auction(*ins, rounds, m, work=work)
-    torch.cuda.synchronize()
-    assert auction.launches == before + 1
-    assert torch.equal(got, auction.auction_torch(*ins, rounds, m))
     want = dist._host_auction(gp, gg, rw, lens, rv.copy(), rounds, m)
-    np.testing.assert_array_equal(got.cpu().numpy()[:, :C], want)
+    tables = [x.cpu() for x in ins[2:]]
+    cpu_win = [x.cpu() for x in win]
+    cut = [x[:, :D].contiguous() for x in ins[:2]]
+    for lists, n_delta in ((ins[:2], S), (cut, 0)):
+        before = auction.launches
+        got = auction.auction_windows(*lists, *win, n_delta, rounds, m, C,
+                                      work=work).cpu()
+        assert auction.launches == before + 1
+        cpu_lists = [x.cpu() for x in lists]
+        assert torch.equal(got, auction.auction_windows(
+            *cpu_lists, *cpu_win, n_delta, rounds, m, C))
+        assert torch.equal(got[:n].view(T, C + 1), auction.auction_torch(
+            *cpu_lists, *tables, rounds, m))
+        np.testing.assert_array_equal(got[:n].view(T, C + 1)[:, :C], want)
+        rows = got[n:2 * n].view(T, C + 1).numpy()
+        np.testing.assert_array_equal(rows[:, :C], rw)
+        np.testing.assert_array_equal(rows[:, C], lens)
     assert (want >= 0).sum() > 0
     assert (work.scratch is not None) == (slots == 1024)
     assert work.lists_staged == (slots is None)
-    # the [T, D] lists the device plan hands over give the same commits
-    D = C + m + 1
-    cut = [x[:, :D].contiguous() for x in ins[:2]] + ins[2:]
-    got_cut = auction.auction(*cut, rounds, m, work=work)
-    assert torch.equal(got_cut, auction.auction_torch(*cut, rounds, m))
-    np.testing.assert_array_equal(got_cut.cpu().numpy()[:, :C], want)
     with pytest.raises(ValueError, match="workspace"):
-        auction.auction(*ins, rounds, m + 1, work=work)
+        auction.auction_windows(*ins[:2], *win, 0, rounds, m + 1, C,
+                                work=work)
 
 
 @pytest.mark.cuda
 def test_auction_launch_failure_raises(card):
-    (_, _, rw, _, _), ins = _auction_instance(np.random.default_rng(3), 4,
-                                              8, 2, 4)
+    (_, _, rw, _, _), ins, win = _auction_instance(
+        np.random.default_rng(3), 4, 8, 2, 4)
     work = auction.Workspace(4, rw.shape[1], 8, card)
     with pytest.raises(RuntimeError, match="auction launch failed"):
-        work.launch(*ins, -1)  # the kernel refuses a negative round count
+        # the kernel refuses a negative round count
+        work.launch_windows(*ins[:2], *win, 0, -1)
     with pytest.raises(ValueError, match="workspace"):
-        auction.Workspace(4, rw.shape[1] + 1, 8, card).launch(*ins, 4)
+        auction.Workspace(5, rw.shape[1], 8, card).launch_windows(
+            *ins[:2], *win, 0, 4)
 
 
 @pytest.mark.cuda
@@ -300,6 +333,113 @@ def test_sharded_device_tier_equals_host_tier_over_churn(card):
     assert [r["rounds_equal_to_host_tier"] for r in out["rows"]] == [8, 8]
     assert all(r["pairs_total"] > 0 for r in out["rows"])
     assert auction.launches - before == sum(plans)
+
+
+#: (T, C, R, density, staged slots, slots, slots in use): the benchmark
+#: cell's shape (1,304 slots x 100 rows, C = 512; about 2,300 rows fill the
+#: four windows), the 10k row's (10,000 x 2 at T = 8), two mask words a row,
+#: a working set past shared memory (T = 32, C = 1024: the kernel's
+#: scratch), no accepting row at all, one slot a type
+WINDOW_CASES = [(4, 512, 100, 0.25, 10, 1304, 1297),
+                (8, 512, 2, 0.4, 40, 10000, 9000),
+                (40, 64, 8, 0.3, 7, 64, 60), (32, 1024, 16, 0.2, 5, 512, 500),
+                (4, 16, 4, 0.0, 3, 30, 25), (1, 1, 1, 0.5, 2, 30, 25)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,C,R,density,n_delta,S,nused", WINDOW_CASES)
+def test_auction_windows_kernel_matches_plain(card, T, C, R, density, n_delta,
+                                              S, nused):
+    """One launch of the auction against its plain version on the
+    same inputs: the whole output (commits, each slot's requester row,
+    lengths, rounds run, ``scanned``, and so the dense ids in scan order)
+    and the table the staged rows were applied to."""
+    inst = random_windows(np.random.default_rng(T * 7 + C), T, C, R, density,
+                          n_delta, S=S, nused=nused, m=32 if T <= 8 else 8,
+                          rounds=16)
+    names = ("gp", "gg", "table", "order", "delta")
+    cpu = [torch.from_numpy(inst[k]) for k in names]
+    dev = [x.to(card) for x in cpu]
+    m, rounds = inst["m"], inst["rounds"]
+    work = auction.Workspace(T, C, m, card)
+    before = auction.launches
+    got = auction.auction_windows(*dev[:2], *dev[2:], n_delta, rounds, m, C,
+                                  work=work).clone()
+    torch.cuda.synchronize()
+    assert auction.launches == before + 1
+    want = auction.auction_windows(*cpu[:2], *cpu[2:], n_delta, rounds, m, C)
+    assert torch.equal(got.cpu(), want)
+    assert int(work.rounds_run) == int(want[2 * T * (C + 1)])
+    assert int(got[-1]) == inst["reach"]
+    np.testing.assert_array_equal(dev[2].cpu().numpy(), inst["want_table"])
+    assert (work.scratch is not None) == (C == 1024)
+    # a second launch with nothing staged builds the same windows
+    again = auction.auction_windows(*dev[:2], *dev[2:], 0, rounds, m, C,
+                                    work=work)
+    assert torch.equal(again.cpu(), want)
+    with pytest.raises(ValueError, match="delta holds"):
+        auction.auction_windows(*dev[:2], *dev[2:], S + 1, rounds, m, C,
+                                work=work)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CHURN_CASES)
+@pytest.mark.parametrize("nshards", [1, 2, 8])
+def test_card_windows_equal_reqwin_over_churn(card, nshards, case):
+    """30 churn rounds on the card: each device plan's windows, lengths and
+    ``scanned`` equal ``_reqwin`` on the host mirror and the CPU device
+    tier's, its pairs and ``last_assigned`` the host tier's; one auction
+    launch a device plan."""
+    kw = solver_kwargs(case, nshards)
+    sol = dist.DistributedAssignmentSolver(device="cuda", **kw)
+    cpu = dist.DistributedAssignmentSolver(device="cpu", **kw)
+    host = dist.DistributedAssignmentSolver(auction="host", device="cpu",
+                                            **kw)
+    gen = WindowChurn(2000 * nshards + CHURN_CASES.index(case), case)
+    snaps = gen.snaps
+    before = auction.launches
+    for rnd in range(30):
+        pairs = sol.solve(snaps, None)
+        assert pairs == cpu.solve(snaps, None) == host.solve(snaps, None)
+        if sol._req_valid.any():
+            check_windows(sol)
+            np.testing.assert_array_equal(sol._plan_rows, cpu._plan_rows)
+            assert sol.last_scanned == cpu.last_scanned
+            np.testing.assert_array_equal(sol.last_assigned,
+                                          host.last_assigned)
+        snaps = gen.step(pairs)
+    assert auction.launches - before == sol.planner_counts()[
+        "device_windows"] == sol.solve_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncards", [2, 4])
+def test_card_windows_across_cards_equal_reqwin_over_churn(card, ncards):
+    """One shard per card, the requester table, the windows and the auction
+    on cuda:0: the windows equal ``_reqwin`` on the host mirror and the
+    plans those of CPU pieces and of the host tier."""
+    if torch.cuda.device_count() < ncards:
+        pytest.skip(f"needs {ncards} cards")
+    kw = solver_kwargs("mixed", 1)
+    kw.pop("nshards")
+    kw["servers_per_shard"] = -(-24 // ncards)
+    sol = dist.DistributedAssignmentSolver(
+        devices=[f"cuda:{i}" for i in range(ncards)], **kw)
+    cpu = dist.DistributedAssignmentSolver(devices=["cpu"] * ncards,
+                                           device="cpu", **kw)
+    host = dist.DistributedAssignmentSolver(
+        devices=["cpu"] * ncards, device="cpu", auction="host", **kw)
+    gen = WindowChurn(3000 + ncards, "mixed")
+    snaps = gen.snaps
+    for rnd in range(30):
+        pairs = sol.solve(snaps, None)
+        assert pairs == cpu.solve(snaps, None) == host.solve(snaps, None)
+        check_windows(sol)
+        np.testing.assert_array_equal(sol._plan_rows, cpu._plan_rows)
+        np.testing.assert_array_equal(sol.last_assigned, host.last_assigned)
+        snaps = gen.step(pairs)
+    assert sol._reqs.table.device == torch.device("cuda", 0)
+    assert sol.merge_route == "in_place"
 
 
 def _cand_instance(rng, ns, Sl, K, T, one_type=False, dup_ranks=False):
@@ -405,9 +545,11 @@ def test_device_plan_is_two_launches_equal_to_the_host_tier(card):
     assert (candidates.launches - before[0],
             auction.launches - before[1]) == (1, 1)
     sol._sweep()
-    want = dist._host_auction(sol._gp, sol._gg, sol._rw, sol._lens,
+    rw, lens = sol.host_windows()
+    want = dist._host_auction(sol._gp, sol._gg, rw, lens,
                               sol._req_valid.copy(), sol.rounds, sol.m)
     np.testing.assert_array_equal(got, want)
+    check_windows(sol)
 
 
 @pytest.mark.cuda
@@ -553,12 +695,16 @@ def test_back_to_back_device_plans_without_readback(card):
         sol.ingest(snaps)
         got.append(sol._enqueue_device_plan().clone())
         ref.solve(snaps, None)
-        want.append(ref.last_assigned.copy())
+        want.append((ref.last_assigned.copy(), ref._plan_rows.copy()))
     assert sol.merge_route == "in_place" and sol.gather_copies == 0
     for d in set(placement):
         torch.cuda.synchronize(d)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.cpu().numpy()[:, :sol.C], w)
+    T, C = sol.T, sol.C
+    n = T * (C + 1)
+    for g, (w, rows) in zip(got, want):
+        out = g.cpu().numpy()
+        np.testing.assert_array_equal(out[:n].reshape(T, C + 1)[:, :C], w)
+        np.testing.assert_array_equal(out[n:2 * n].reshape(T, C + 1), rows)
 
 
 def _card_placement():

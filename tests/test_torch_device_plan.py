@@ -14,6 +14,15 @@ prios biased past the clip as a job weight biases them) and with and
 without truncation (more than D live slots of a type in a shard). Exact
 equality throughout: priorities and ids are integers.
 
+The requester windows the auction builds in its prologue from the
+resident requester table (``auction_windows``; on the CPU ``windows_torch``)
+are held to the JAX package's ``_reqwin`` on the solver's host mirror, and
+the plans over them to the host tier's, over churn rounds
+(``window_churn.py``: joins and leaves, any-type requesters, multi-job
+composite types, a type too rare to fill its window, an empty requester
+table) at 1, 2 and 8 shards, and on random tables with several mask words a
+row.
+
 The tie rule the kernel relies on is pinned too: equal keys are equal
 (prio, gid) pairs, so the candidates do not depend on which of two slots
 with the same pair comes first, and the solver's live gids are unique
@@ -33,6 +42,9 @@ from adlb_tpu.balancer import distributed as ref
 from adlb_tpu_torch.balancer import auction, candidates
 from adlb_tpu_torch.balancer import distributed as port
 from adlb_tpu_torch.balancer.distributed import DistributedAssignmentSolver
+from adlb_tpu_torch.runtime.trace import Tracer
+from window_churn import (CASES as CHURN_CASES, WindowChurn, check_windows,
+                          host_reach, random_windows, solver_kwargs)
 
 NEG = -(2**31) + 1
 CLIP = 10**9
@@ -125,9 +137,9 @@ def test_auction_over_t_by_d_equals_jax_host_auction(nshards, J, trunc):
     gp, gg = candidates.merged_candidates(*inst["views"], T, D)
     rw, lens = ref._reqwin(inst["rm"], inst["rv"], T, C)
     rwc, open0 = port._compact_reqwin(rw)
-    got = auction.auction(gp, gg, torch.from_numpy(rwc),
-                          torch.from_numpy(lens), torch.from_numpy(open0),
-                          rounds, m)
+    got = auction.auction_torch(gp, gg, torch.from_numpy(rwc),
+                                torch.from_numpy(lens),
+                                torch.from_numpy(open0), rounds, m)
     wp, wg = ref._merge_shard_major(*_jax_candidates(inst))
     want = ref._host_auction(wp, wg, rw, lens, inst["rv"].copy(), rounds, m)
     assert np.array_equal(got.numpy()[:, :C], want)
@@ -213,6 +225,7 @@ def test_device_plan_is_candidates_then_auction_on_the_cpu():
     a_host = ref._host_auction(host._gp, host._gg, host._rw, host._lens,
                                host._req_valid.copy(), host.rounds, host.m)
     assert np.array_equal(a_dev, a_host) and (a_dev >= 0).sum() > 0
+    check_windows(dev)
     # the merged candidates the auction took: [T, D]
     gp, _ = candidates.merged_candidates(*dev._dev_blocks, dev.T, dev.D)
     assert gp.shape == (dev.T, dev.D)
@@ -233,3 +246,182 @@ def test_candidates_check_their_inputs():
     with pytest.raises(ValueError, match="no candidates for device"):
         candidates.shard_candidates(tp.to("meta"), tt.to("meta"),
                                     rk.to("meta"), 2, 3)
+
+
+# ---- the requester windows built by the auction's prologue ----
+
+
+@pytest.mark.parametrize("case", CHURN_CASES)
+@pytest.mark.parametrize("nshards", [1, 2, 8])
+def test_device_windows_equal_reqwin_over_churn(nshards, case):
+    """30 churn rounds: each device plan's windows, lengths and ``scanned``
+    equal the JAX package's ``_reqwin`` on the solver's host mirror, and its
+    pairs and ``last_assigned`` the host tier's. The rank order is re-sent
+    exactly in the rounds whose membership changed; each ingest ships the
+    rows of the servers whose requesters changed, and nothing else."""
+    kw = solver_kwargs(case, nshards)
+    tr = Tracer(0, pid=1)
+    dev = DistributedAssignmentSolver(auction="device", device="cpu",
+                                      tracer=tr, **kw)
+    host = DistributedAssignmentSolver(auction="host", device="cpu", **kw)
+    gen = WindowChurn(1000 * nshards + CHURN_CASES.index(case), case)
+    snaps, members = gen.snaps, None
+    seen = 0
+    short = full = empty = 0
+    for rnd in range(30):
+        pairs = dev.solve(snaps, None)
+        assert pairs == host.solve(snaps, None), rnd
+        events = tr.events[seen:]
+        seen += len(events)
+        rows = [e["args"] for e in events
+                if e["name"] == "planner:ingest.reqrows"]
+        changed = set(snaps) != members
+        members = set(snaps)
+        assert [r["order_uploaded"] for r in rows] in (
+            [[True]] if changed else [[False], []]), rnd
+        # the mirror's mask is clear on every row that is not valid: what
+        # lets the device tier ship the mask alone
+        assert not (dev._req_mask & ~dev._req_valid[:, None]).any()
+        if not dev._req_valid.any():
+            empty += 1
+            continue
+        check_windows(dev)
+        rw, lens = ref._reqwin(dev._req_mask, dev._req_valid, dev.T, dev.C,
+                               dev._row_perm)
+        assert np.array_equal(dev._plan_rows[:, :dev.C], rw)
+        assert np.array_equal(dev._plan_rows[:, dev.C], lens)
+        assert np.array_equal(dev.last_assigned, host.last_assigned), rnd
+        in_use = len(dev._si) * dev.R
+        if (lens < dev.C).any():
+            short += 1
+            assert dev.last_scanned == in_use
+        else:
+            full += 1
+            assert dev.C <= dev.last_scanned <= in_use
+        snaps = gen.step(pairs)
+    counts = dev.planner_counts()
+    assert counts["device_windows"] == counts["device_plans"] == 30 - empty
+    if case == "rare":
+        assert short == 30 and (dev._plan_rows[3, dev.C] < dev.C)
+    elif case == "drain":
+        assert empty >= 3 and full > 0
+    else:
+        assert full > 0
+
+
+@pytest.mark.parametrize("case", ["mixed", "multi_job"])
+def test_device_windows_equal_reqwin_on_the_view_path(case):
+    """The engine's path: 20 churn rounds through the array ledger's view
+    (``_ingest_view``). Each device plan's windows equal ``_reqwin`` on the
+    mirror, its pairs the host tier's from the same view, and the mirror's
+    mask is clear on every row that is not valid."""
+    import time
+
+    from adlb_tpu_torch.balancer.engine import PlanEngine
+
+    kw = solver_kwargs(case, 2)
+    J = kw.get("max_jobs", 1)
+    eng = PlanEngine(kw["types"], kw["max_tasks_per_server"],
+                     kw["max_requesters"], use_mesh=True, nshards=2,
+                     nservers=24, max_jobs=J, job_weights=kw.get(
+                         "job_weights"), device="cpu")
+    led = eng._ledger
+    dev = DistributedAssignmentSolver(auction="device", device="cpu", **kw)
+    host = DistributedAssignmentSolver(auction="host", device="cpu", **kw)
+    gen = WindowChurn(4000 + J, case)
+    snaps = gen.snaps
+    windows = 0
+    for rnd in range(20):
+        now = time.monotonic()
+        led.sync(snaps, now)
+        led.filter_reqs(snaps, {}, now)
+        view = led.view()
+        dev._ingest_view(view)
+        host._ingest_view(view)
+        pairs = dev.plan()
+        assert pairs == host.plan(), rnd
+        assert not (dev._req_mask & ~dev._req_valid[:, None]).any()
+        if dev._req_valid.any():
+            check_windows(dev)
+            assert np.array_equal(dev.last_assigned, host.last_assigned)
+            windows += 1
+        snaps = gen.step(pairs)
+    assert windows == 20 == dev.planner_counts()["device_windows"]
+
+
+def test_device_windows_of_an_empty_requester_table():
+    """No requester parked: ``plan`` returns nothing and launches nothing;
+    a device plan over the empty table builds empty windows (every row in
+    use read, nothing committed). The rows staged for a plan that never
+    launched are applied by the next launch."""
+    kw = solver_kwargs("mixed", 2)
+    sol = DistributedAssignmentSolver(auction="device", device="cpu", **kw)
+    gen = WindowChurn(77, "mixed")
+    snaps = gen.snaps
+    parked = {s: snaps[s]["reqs"] for s in snaps}
+    for s in snaps:
+        snaps[s]["reqs"] = []
+    assert sol.solve(snaps, None) == []
+    assert sol.planner_counts()["device_windows"] == 0
+    # the cold ingest staged every server's (empty) rows; no launch took them
+    assert sol._reqs.pending.size == len(snaps)
+    assigned = sol._device_plan()
+    assert sol._reqs.pending.size == 0
+    assert (assigned == -1).all() and (sol._plan_rows[:, :sol.C] == -1).all()
+    assert (sol._plan_rows[:, sol.C] == 0).all()
+    assert sol.last_scanned == len(snaps) * sol.R == host_reach(sol)
+    # park, plan, then drain: the drained rows stay pending (plan returns
+    # before any launch) until the requesters come back
+    for s in snaps:
+        snaps[s]["reqs"] = parked[s]
+        snaps[s]["stamp"] += 100
+    assert sol.solve(snaps, None)
+    check_windows(sol)
+    for s in snaps:
+        snaps[s]["reqs"] = []
+        snaps[s]["stamp"] += 100
+    assert sol.solve(snaps, None) == []
+    assert sol._reqs.pending.size == len(snaps)
+    s0 = sorted(snaps)[0]
+    snaps[s0]["reqs"] = parked[s0]
+    snaps[s0]["stamp"] += 100
+    sol.solve(snaps, None)
+    assert sol._reqs.pending.size == 0
+    check_windows(sol)
+    assert (sol._plan_rows[:, sol.C] <= len(parked[s0])).all()
+
+
+@pytest.mark.parametrize("T,C,R,density,n_delta", [
+    (4, 8, 6, 0.4, 0), (4, 512, 100, 0.25, 10), (8, 5, 3, 0.05, 4),
+    (40, 16, 4, 0.3, 7), (1, 3, 1, 0.0, 2)])
+def test_windows_plain_version_equals_reqwin_and_compaction(T, C, R, density,
+                                                           n_delta):
+    """``auction_windows`` on the CPU against the host's pipeline on random
+    tables (40 types: two mask words a row; density 0: empty windows):
+    the staged rows applied, the windows and lengths of ``_reqwin`` in rank
+    order, ``scanned``, and the commits of ``auction_torch`` over the host's
+    sorted compacted ids, though the windows' ids follow the scan."""
+    inst = random_windows(np.random.default_rng(T * 1000 + C), T, C, R,
+                          density, n_delta)
+    gp, gg, table, order, delta = (torch.from_numpy(inst[k]) for k in (
+        "gp", "gg", "table", "order", "delta"))
+    mask, valid, perm, nused, m, rounds = (inst[k] for k in (
+        "mask", "valid", "perm", "nused", "m", "rounds"))
+    rw, lens = ref._reqwin(mask, valid, T, C, perm)
+    out = auction.auction_windows(gp, gg, table, order, delta, n_delta,
+                                  rounds, m, C)
+    n = T * (C + 1)
+    assert out.shape == (2 * n + 2,) and out.dtype == torch.int32
+    assert np.array_equal(table.numpy(), inst["want_table"])
+    rows = out[n:2 * n].view(T, C + 1).numpy()
+    assert np.array_equal(rows[:, :C], rw)
+    assert np.array_equal(rows[:, C], lens)
+    assert int(out[-1]) == inst["reach"]
+    rwc, open0 = port._compact_reqwin(rw)
+    want = auction.auction_torch(gp, gg, torch.from_numpy(rwc),
+                                 torch.from_numpy(lens),
+                                 torch.from_numpy(open0), rounds, m)
+    assert torch.equal(out[:n].view(T, C + 1), want)
+    if density:
+        assert (want >= 0).sum() > 0
+

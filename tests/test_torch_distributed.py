@@ -653,7 +653,10 @@ def test_no_realloc_at_10k_shape(J):
     assert sol.solve(snaps, None)
     ptrs = {n: getattr(sol, n).data_ptr()
             for n in ("_dev_tab",)}
-    ptrs.update(rows=sol._rows.dev.data_ptr(), req=sol._reqbuf.dev.data_ptr())
+    ptrs.update(rows=sol._rows.dev.data_ptr(),
+                req=sol._reqs.table.data_ptr(),
+                req_rows=sol._reqs.rows.dev.data_ptr(),
+                req_order=sol._reqs.order.dev.data_ptr())
     planned = 0
     for rnd in range(3):
         del snaps[sorted(snaps)[rnd]]
@@ -670,7 +673,9 @@ def test_no_realloc_at_10k_shape(J):
         planned += len(sol.solve(snaps, None))
     now = {"_dev_tab": sol._dev_tab.data_ptr(),
            "rows": sol._rows.dev.data_ptr(),
-           "req": sol._reqbuf.dev.data_ptr()}
+           "req": sol._reqs.table.data_ptr(),
+           "req_rows": sol._reqs.rows.dev.data_ptr(),
+           "req_order": sol._reqs.order.dev.data_ptr()}
     assert now == ptrs
     assert planned > 0
 

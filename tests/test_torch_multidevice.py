@@ -66,8 +66,9 @@ def _multi(n, auction="device", **kw):
 def _jax_plan(sol):
     """The JAX package's pipeline on the solver's host mirror: per-shard
     candidates, the shard-major merge, the rank-ordered requester windows
-    and the host auction. Returns (assigned [T, C], pairs) with the pairs
-    extracted as ``plan()`` extracts them."""
+    and the host auction. Returns (assigned [T, C], pairs, the windows
+    [T, C], their lengths [T]) with the pairs extracted as ``plan()``
+    extracts them."""
     Sl, T, D = sol._Sl, sol.T, sol.D
     rk = np.maximum(sol._row_rank, 0).astype(np.int32)
     parts = [_ref_cands(jnp.asarray(sol._tp[d * Sl:(d + 1) * Sl]),
@@ -91,7 +92,7 @@ def _jax_plan(sol):
         rref = sol._req_ref[rid]
         if tref is not None and rref is not None:
             pairs.append((tref[0], tref[1], rref[0], rref[1], rref[2]))
-    return assigned, pairs
+    return assigned, pairs, rw, lens
 
 
 def _pieces_hold_the_mirror(sol):
@@ -137,7 +138,9 @@ def test_rounds_equal_the_jax_pipeline_and_logical_shards(n, auction, J):
     every eighth round, a deep single-type burst past D every sixteenth
     and, with two jobs, a reweight at round 20. Each round the assignment
     array and the pair list equal the JAX pipeline's and the logical-shard
-    solver's, and every piece holds the host mirror's rows."""
+    solver's, every piece holds the host mirror's rows and, on the device
+    tier, the windows the auction built on the planning device equal the
+    JAX pipeline's."""
     rng = np.random.default_rng(9000 + 100 * n + 10 * J + (auction == "host"))
     nservers = 2 * n + 1
     kw = dict(max_tasks_per_server=24, max_requesters=4, rounds=8,
@@ -176,9 +179,14 @@ def test_rounds_equal_the_jax_pipeline_and_logical_shards(n, auction, J):
         pairs = multi.solve(snaps, None)
         assert pairs == logical.solve(snaps, None), rnd
         assert np.array_equal(multi.last_assigned, logical.last_assigned)
-        want_assigned, want_pairs = _jax_plan(multi)
+        want_assigned, want_pairs, rw, lens = _jax_plan(multi)
         assert np.array_equal(multi.last_assigned, want_assigned), rnd
         assert pairs == want_pairs, rnd
+        if auction == "device" and multi._req_valid.any():
+            assert np.array_equal(multi._plan_rows[:, :multi.C], rw), rnd
+            assert np.array_equal(multi._plan_rows[:, multi.C], lens), rnd
+            assert np.array_equal(multi._plan_rows, logical._plan_rows)
+            assert multi.last_scanned == logical.last_scanned
         _pieces_hold_the_mirror(multi)
         planned += len(pairs)
         # the data plane consumes the plan
@@ -458,13 +466,14 @@ def test_a_changed_row_uploads_to_its_owner_piece_only(auction):
 def test_a_device_plan_is_one_candidates_call_per_piece_and_one_merge(
         monkeypatch):
     """A device-tier round across n pieces: n per-shard candidate calls
-    (kernel A on each card), one call of the merge alone and one auction,
-    all on their pieces' devices; the host tier's sweep reads every piece."""
+    (kernel A on each card), one call of the merge alone and one auction
+    (which builds the requester windows), all on their pieces' devices; the
+    host tier's sweep reads every piece."""
     from adlb_tpu_torch.balancer import distributed as dist
 
     calls = {"shard": [], "merge": 0, "auction": 0}
     shard, merge, auct = (candidates.shard_candidates, candidates.merge_runs,
-                          dist._auction.auction)
+                          dist._auction.auction_windows)
 
     def count_shard(tp, *a, **k):
         calls["shard"].append(tp.shape[0])
@@ -478,7 +487,8 @@ def test_a_device_plan_is_one_candidates_call_per_piece_and_one_merge(
 
     monkeypatch.setattr(candidates, "shard_candidates", count_shard)
     monkeypatch.setattr(candidates, "merge_runs", count("merge", merge))
-    monkeypatch.setattr(dist._auction, "auction", count("auction", auct))
+    monkeypatch.setattr(dist._auction, "auction_windows",
+                        count("auction", auct))
     sol = _multi(3, types=(1, 2), max_tasks_per_server=4, max_requesters=2,
                  servers_per_shard=2)
     snaps = {100 + s: {"tasks": [(s + 1, 1 + s % 2, s, 8)],
@@ -491,7 +501,8 @@ def test_a_device_plan_is_one_candidates_call_per_piece_and_one_merge(
     assert sol.gather_copies == 0 and candidates.gather_copies == copies
     counts = sol.planner_counts()
     assert (counts["merge_route"], counts["gather_copies"],
-            counts["device_plans"]) == ("in_place", 0, 1)
+            counts["device_plans"], counts["device_windows"]) == (
+                "in_place", 0, 1, 1)
 
 
 @pytest.mark.parametrize("n", [2, 3, 8])
@@ -530,7 +541,7 @@ def test_plan_engine_across_pieces_builds_them_at_construction():
     sol = eng.solver
     assert isinstance(sol, DistributedAssignmentSolver)
     assert [p.tab.device.type for p in sol._pieces] == ["cpu"] * 3
-    assert sol._dev_req is not None and sol.merge_route == "in_place"
+    assert sol._reqs is not None and sol.merge_route == "in_place"
     bare = _multi(3, types=(1, 2), max_tasks_per_server=8, max_requesters=4)
     assert bare._pieces is None and bare.merge_route is None
     bare.warm()

@@ -18,7 +18,7 @@ TYPES = (1, 2, 3, 4)
 K, R = 6, 4
 
 INGEST = {"planner:ingest.diff", "planner:ingest.pack",
-          "planner:ingest.upload", "planner:ingest.reqwin"}
+          "planner:ingest.upload", "planner:ingest.reqrows"}
 DEVICE_PLAN = {"planner:plan.enqueue", "planner:plan.readback",
                "planner:plan.extract"}
 TABLE = {"planner:ingest", "planner:plan"} | INGEST | DEVICE_PLAN
@@ -109,13 +109,22 @@ def test_tuple_path_round_emits_the_table():
     up = spans["planner:ingest.upload"]["args"]
     assert up["rows"] == n and up["pieces"] == 1
     assert up["bytes"] == n * 4 * (2 * K + 2)
-    assert spans["planner:ingest.reqwin"]["args"]["bytes"] > 0
+    # the requester rows of the two servers whose lists changed (11, and
+    # 17, which left): their slots and a byte a type for each row; and the
+    # rank order again
+    rq = spans["planner:ingest.reqrows"]["args"]
+    assert rq["rows"] == 2 * R and rq["order_uploaded"] is True
+    assert rq["bytes"] == 4 * (sol.S + 1) + 4 * (2 + 2 * R)
     assert spans["planner:plan"]["args"]["pairs"] == len(pairs) > 0
     assert spans["planner:plan.extract"]["args"]["pairs"] == len(pairs)
     # the plain versions run on the CPU: no kernel launches
     assert spans["planner:plan.enqueue"]["args"]["launches"] == 0
     T, C = sol.T, sol.C
-    assert spans["planner:plan.readback"]["args"]["bytes"] == 4 * T * (C + 1)
+    rb = spans["planner:plan.readback"]["args"]
+    assert rb["bytes"] == 4 * (2 * T * (C + 1) + 2)
+    # C = 32 slots a type over 28 rows in use: no window fills, and the
+    # scan reads every row of the seven servers
+    assert C == 32 and rb["scanned"] == len(sol._si) * R == 28
     # the spans are the timers' own intervals
     assert spans["planner:ingest"]["dur"] == pytest.approx(
         1e3 * sol.last_ingest_ms)
@@ -155,6 +164,9 @@ def test_view_path_round_emits_the_table():
     assert pack["task_rows"] == n == 8
     assert pack["req_servers"] == 8 and pack["req_rows"] == 4 * len(TYPES)
     assert spans["planner:ingest.upload"]["args"]["rows"] == n
+    rq = spans["planner:ingest.reqrows"]["args"]
+    assert rq["rows"] == 8 * R and rq["order_uploaded"] is True
+    assert rq["bytes"] == 4 * (sol.S + 1) + 4 * (8 + 8 * R)
     assert spans["planner:plan"]["args"]["pairs"] == len(pairs) > 0
 
 
@@ -163,11 +175,38 @@ def test_host_tier_plans_under_one_child():
     sol = _solver(tracer=tr, auction="host")
     sol.ingest(_snaps())
     sol.plan()
-    names = (TABLE - DEVICE_PLAN) | {"planner:plan.host",
-                                     "planner:plan.extract"}
+    names = (TABLE - DEVICE_PLAN - {"planner:ingest.reqrows"}) | {
+        "planner:ingest.reqwin", "planner:plan.host", "planner:plan.extract"}
     spans = _check_round(tr.events, names)
     assert spans["planner:ingest.reqwin"]["args"]["bytes"] == 0
+    assert spans["planner:ingest.reqwin"]["args"]["perm_rebuilt"] is True
     assert spans["planner:plan.host"]["args"]["swept"] is True
+
+
+def test_device_tier_ships_no_requester_rows_when_none_changed():
+    """A round whose requesters did not change stages nothing: no
+    ``planner:ingest.reqrows`` span, and the plan still builds its windows
+    from the resident rows (``scanned`` as before)."""
+    tr = Tracer(0, pid=1)
+    sol = _solver(tracer=tr)
+    snaps = _snaps()
+    sol.ingest(snaps)
+    sol.plan()
+    snaps = copy.deepcopy(snaps)
+    snaps[10]["tasks"] = [(950, 3, 40, 8)]
+    snaps[10]["task_stamp"] = 2.0
+    sol.ingest(snaps)
+    sol.plan()
+    second = [e for e in tr.events if e["args"]["round"] == 1]
+    names = {e["name"] for e in second}
+    assert "planner:ingest.reqrows" not in names
+    assert "planner:ingest.reqwin" not in names
+    first = [e for e in tr.events if e["args"]["round"] == 0]
+    assert "planner:ingest.reqrows" in {e["name"] for e in first}
+    scanned = [e["args"]["scanned"] for e in tr.events
+               if e["name"] == "planner:plan.readback"]
+    assert scanned == [8 * R, 8 * R]
+    assert sol.planner_counts()["device_windows"] == 2
 
 
 def test_tracer_attached_between_rounds_labels_each_round():
@@ -302,7 +341,7 @@ def test_plan_engine_hands_its_tracer_to_the_sharded_solver():
     assert matches
     names = {e["name"] for e in tr.events}
     assert {"planner:ingest", "planner:plan"} <= names
-    assert INGEST - {"planner:ingest.reqwin"} <= names
+    assert INGEST <= names
     ingest = [e for e in tr.events if e["name"] == "planner:ingest"]
     assert ingest[0]["args"]["path"] == "view"
 
