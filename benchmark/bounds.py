@@ -45,6 +45,34 @@ def k5_bytes(commits, lens, m: int, D: int, C: int) -> int:
     return read + 4 * T + 4 * (T * (C + 1) + 1)
 
 
+def k5_pack_bytes(staged_rows: int, R: int, T: int) -> int:
+    """The first step of the auction kernel's prologue (``auction_kernel``
+    before its rounds, ``csrc/auction.cu``): the rows the last ingest
+    staged, of n = staged_rows / R server slots, packed into the resident
+    requester table. It reads the staged buffer (``delta``: the n slots,
+    int32, then each row's T type-flag bytes, padded to a word; what
+    ``planner:ingest.reqrows`` counts as ``bytes``) and writes W = ceil(T /
+    32) mask words (int32) a staged row into the table."""
+    W = -(-T // 32)
+    n = -(-staged_rows // R)
+    return 4 * (n + -(-staged_rows * T // 4)) + 4 * W * staged_rows
+
+
+def k5_window_bytes(scanned: int, R: int, T: int, C: int) -> int:
+    """The rest of the auction kernel's prologue (``build_windows``): the
+    requester table scanned in rank order into the per-type windows of C.
+    It reads the order's count and the slots of the ``scanned`` rows (int32,
+    one a slot of R rows) and each scanned row's W = ceil(T / 32) mask words
+    (``scanned``: the rows up to the one that filled the last window, as the
+    readback reports it; the block's overrun of at most one span past it is
+    not the work's), and writes the rows part [T, C + 1] of the output (each
+    slot's physical row, column C the window's length) and the ``scanned``
+    word (int32). The windows' dense ids, lengths and open flags stay in
+    shared memory at the benchmark's sizes: no device-memory bytes."""
+    W = -(-T // 32)
+    return 4 * (1 + -(-scanned // R)) + 4 * W * scanned + 4 * T * (C + 1) + 4
+
+
 def roofline_pct(nbytes: float, seconds: float):
     """Share of the bytes bound: the least time for ``nbytes`` over the
     measured device seconds, in %. None where nothing ran."""

@@ -11,6 +11,22 @@ their holders and each matched requester re-parks at the end of its home's
 list with a fresh sequence number and a fresh random type. Stamps ride the
 snapshots as the engine's do. Two changes from the copy: the cold pool is
 drawn in one call, and a round's draws are made in one call each.
+
+Two parameters fix the work a round makes, whatever the seed (both off
+where a traffic file leaves them out, which is the copy above):
+
+* ``"mix": "balanced"``: every server's cold pool and every burst hold each
+  type equally often (to one), in an order drawn from the seed, where
+  ``"each"`` draws every type on its own;
+* ``"repark": "same"``: a matched requester re-parks for the type it had,
+  as a worker that asks for the same work again does, where ``"fresh"``
+  draws a new one.
+
+With independent draws the types of the requesters in rank order walk at
+random round by round, so the rows a plan scans for C requesters of each
+type, and with them the card's work, grow over a window and differ from
+seed to seed; balanced and re-parked for the same type, every server keeps
+its mix and every round has the same number of tasks of each type.
 """
 
 from __future__ import annotations
@@ -33,13 +49,18 @@ class Churn:
         self.delta = int(params["delta_servers"])
         self.burst = int(params["burst"])
         self.prio_lo, self.prio_hi = params["prio_range"]
+        self.mix = params.get("mix", "each")
+        self.repark = params.get("repark", "fresh")
+        if self.mix not in ("each", "balanced") or self.repark not in (
+                "fresh", "same"):
+            raise ValueError(f"churn: mix {self.mix!r} or repark "
+                             f"{self.repark!r} unknown")
         self.holding: set = set()  # servers with tasks queued
         self.clock = 1.0
         self.seq = 10**6
         self.rq = 10**7
         self.round = 0
-        pool = self.types[self.rng.integers(0, len(self.types),
-                                            size=(nservers, R))].tolist()
+        pool = self._draw_types((nservers, R)).tolist()
         self.snaps: dict = {}
         # a million tuples: built with the collector off, then moved out of
         # its reach, so that it neither scans them while they are built nor
@@ -60,6 +81,19 @@ class Churn:
             gc.enable()
         self.order = sorted(self.snaps)
 
+    def _draw_types(self, shape) -> np.ndarray:
+        """Types of the given shape: drawn each on its own, or (balanced)
+        each row holding every type equally often, in an order drawn from
+        the seed."""
+        shape = (1, shape) if isinstance(shape, int) else shape
+        if self.mix == "each":
+            out = self.types[self.rng.integers(0, len(self.types), shape)]
+        else:
+            out = self.rng.permuted(
+                np.broadcast_to(np.resize(self.types, shape[1]), shape),
+                axis=1)
+        return out.reshape(-1) if shape[0] == 1 else out
+
     def _stamp(self) -> float:
         self.clock += 1.0
         return self.clock
@@ -67,7 +101,8 @@ class Churn:
     def bursts(self) -> None:
         """This round's task bursts."""
         n = self.delta * self.burst
-        ty = self.types[self.rng.integers(0, len(self.types), n)].tolist()
+        ty = (self._draw_types(n) if self.mix == "each" else
+              self._draw_types((self.delta, self.burst)).reshape(-1)).tolist()
         pr = self.rng.integers(self.prio_lo, self.prio_hi, n).tolist()
         for d in range(self.delta):
             sv = self.first + (self.round * self.delta + d) % self.S
@@ -85,17 +120,27 @@ class Churn:
     def consume(self, pairs) -> None:
         """The data plane takes the plan: matched tasks leave, matched
         requesters re-park with a fresh type."""
-        fresh = self.types[self.rng.integers(0, len(self.types),
-                                             max(len(pairs), 1))].tolist()
+        fresh = (self.types[self.rng.integers(0, len(self.types),
+                                              max(len(pairs), 1))].tolist()
+                 if self.repark == "fresh" else None)
         touched: dict = {}
         for i, (holder, seqno, req_home, for_rank, rqseqno) in enumerate(
                 pairs):
             touched.setdefault(holder, set()).add(seqno)
             rs = self.snaps[req_home]
             self.rq += 1
-            rs["reqs"] = [r for r in rs["reqs"]
-                          if not (r[0] == for_rank and r[1] == rqseqno)] + [
-                (for_rank, self.rq, [fresh[i]])]
+            keep = [r for r in rs["reqs"]
+                    if not (r[0] == for_rank and r[1] == rqseqno)]
+            if fresh is not None:
+                ty = [fresh[i]]
+            else:
+                # a pair that names no parked requester (a wrong plan)
+                # re-parks nobody
+                ty = next((r[2] for r in rs["reqs"]
+                           if r[0] == for_rank and r[1] == rqseqno), None)
+                if ty is None:
+                    continue
+            rs["reqs"] = keep + [(for_rank, self.rq, ty)]
             rs["stamp"] = self._stamp()
         for h, seqs in touched.items():
             hs = self.snaps[h]
@@ -131,3 +176,7 @@ class Churn:
             if s not in out:
                 out[s] = {"tasks": self.snaps[s]["tasks"], "reqs": []}
         return out
+
+
+#: the name a traffic file's ``"generator": "churn"`` finds (the default)
+Generator = Churn

@@ -12,6 +12,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import sys
 import time
 from pathlib import Path
@@ -20,6 +21,8 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 #: modules that may not be loaded in a measured process, by top-level name
 FORBIDDEN = ("jax", "jaxlib", "flax", "adlb_tpu")
+#: the name of a module of the harness that a JSON file names
+MODULE_NAME = re.compile(r"[a-z0-9_]+")
 
 
 def load_manifest(root: Path = ROOT) -> dict:
@@ -50,6 +53,21 @@ def config_file(entry: dict, root: Path = ROOT) -> dict:
 def traffic_file(traffic: str) -> dict:
     """A traffic mix is ``traffic/<name>.json``."""
     return read_json(HERE / "traffic" / f"{traffic}.json")
+
+
+def harness_module(name: str):
+    """The harness's module ``benchmark/<name>.py``, imported, where
+    ``name`` was read from a file: a cell's runner (``<kind>_cell``) or a
+    traffic generator. Only ``[a-z0-9_]+`` is taken, so no name leads out
+    of ``benchmark/``; a name refused or a file missing raises an error
+    that names the file."""
+    path = f"{HERE.name}/{name}.py"
+    if not isinstance(name, str) or not MODULE_NAME.fullmatch(name):
+        raise ValueError(f"{path}: {name!r} is not a name of the harness's "
+                         f"modules ([a-z0-9_]+)")
+    if not (HERE / f"{name}.py").is_file():
+        raise FileNotFoundError(f"{path}: no such file in the harness")
+    return importlib.import_module(f"{HERE.name}.{name}")
 
 
 def metric_reader(name: str):
@@ -103,44 +121,62 @@ class Spans:
 
 
 class DeviceTrace:
-    """``torch.profiler`` (CUDA activity, and the host thread that starts
-    it, which records one marker that ties the trace's clock to
-    ``time.perf_counter``). Started and stopped on one thread, before and
-    after the window; :meth:`reduce` reads the window alone."""
+    """``torch.profiler`` over the window: CUDA activity, and with ``host``
+    the host thread that starts it too, which records one marker that ties
+    the trace's clock to ``time.perf_counter``. Started and stopped on one
+    thread, before and after the window. :meth:`reduce` reads the window
+    alone and names its idle gaps (``host``); :meth:`busy` reads the card's
+    busy time over all of the trace, which holds the window alone: the
+    profiler starts once the warm-up has landed and stops once the
+    window's last round has."""
 
-    def __init__(self, tmpdir: str) -> None:
+    def __init__(self, tmpdir: str, host: bool = True) -> None:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
         self.torch = torch
+        self.host = host
         self.path = os.path.join(tmpdir, f"bench_trace_{os.getpid()}.json")
         self.prof = profile(activities=[ProfilerActivity.CPU,
-                                        ProfilerActivity.CUDA])
+                                        ProfilerActivity.CUDA] if host
+                            else [ProfilerActivity.CUDA])
         self.t_mark = None
 
     def start(self) -> None:
         self.prof.start()
-        with self.torch.profiler.record_function("bench_clock_mark"):
-            self.t_mark = time.perf_counter()
+        if self.host:
+            with self.torch.profiler.record_function("bench_clock_mark"):
+                self.t_mark = time.perf_counter()
 
     def stop(self) -> None:
         self.torch.cuda.synchronize()
         self.prof.stop()
 
+    def _events(self) -> list:
+        self.prof.export_chrome_trace(self.path)
+        try:
+            with open(self.path) as f:
+                return json.load(f)["traceEvents"]
+        finally:
+            os.unlink(self.path)
+
+    def busy(self) -> dict:
+        """The card's busy seconds over the trace (the union of its
+        kernels', copies' and sets' intervals) and its operations."""
+        dev = device_events(self._events())
+        return {"busy_s": union_seconds(
+            (float(e["ts"]) * 1e-6,
+             (float(e["ts"]) + float(e.get("dur", 0))) * 1e-6) for e in dev),
+            "ops": len(dev)}
+
     def reduce(self, spans: list, lo: float, hi: float) -> dict:
         """busy_s and window_s of the window [lo, hi] (perf_counter), its
         per-kernel device seconds and launches, and its longest idle gaps
         named by the innermost host span over them."""
-        self.prof.export_chrome_trace(self.path)
-        try:
-            with open(self.path) as f:
-                events = json.load(f)["traceEvents"]
-        finally:
-            os.unlink(self.path)
+        events = self._events()
         mark = [e for e in events if e.get("name") == "bench_clock_mark"
                 and e.get("ph") == "X"]
-        dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
-               ("kernel", "gpu_memcpy", "gpu_memset")]
+        dev = device_events(events)
         window_s = hi - lo
         if not mark:
             raise RuntimeError("the profiler's trace lacks the clock mark")
@@ -181,6 +217,27 @@ class DeviceTrace:
                 "idle_gaps": named}
 
 
+def union_seconds(intervals) -> float:
+    """The length of the union of (start, end) intervals."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def device_events(events: list) -> list:
+    """The card's operations among a Chrome trace's events."""
+    return [e for e in events if e.get("ph") == "X" and e.get("cat") in
+            ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
 def gap_label(spans: list, g0: float, g1: float) -> str:
     """The innermost host span over the gap's middle, else what was left."""
     mid = 0.5 * (g0 + g1)
@@ -205,6 +262,25 @@ def kernel_seconds(trace: dict, needle: str) -> tuple:
             sec += tot
             n += cnt
     return sec, n
+
+
+def program_spans(run: dict, name: str):
+    """The program's spans called ``name`` in the window, as (seconds,
+    args); None where the run kept no program spans or none of that
+    name."""
+    found = [(t1 - t0, args) for n, t0, t1, args in
+             run.get("program_spans") or () if n == name]
+    return found or None
+
+
+def span_ms(run: dict, name: str):
+    """Milliseconds a round in the program's spans called ``name``: their
+    sum over the window's rounds (a phase that a round skips counts 0
+    there); None where there is no such span."""
+    found = program_spans(run, name)
+    if found is None or not run.get("rounds"):
+        return None
+    return 1e3 * sum(sec for sec, _ in found) / len(run["rounds"])
 
 
 def percentile(values, q: float) -> float:

@@ -25,13 +25,12 @@ if str(ROOT) not in sys.path:
 
 
 def control_hook(kind: str, shift: int) -> dict:
-    """The run's hook that puts the control in the program's place: for a
-    planner cell, ``make_solver`` builds the reference planner."""
-    if kind != "planner":
-        raise ValueError(f"no control for a {kind} cell")
-    from benchmark.planner_cell import ControlPlanner
+    """The run's hooks that put the control in the program's place, from
+    the cell's own module (``benchmark/<kind>_cell.py``, its
+    ``control(shift)``)."""
+    from benchmark.run import cell_module
 
-    return {"make_solver": lambda conf: ControlPlanner(conf, shift)}
+    return cell_module(kind).control(shift)
 
 
 def main(argv=None) -> int:

@@ -1,10 +1,30 @@
 """A planner cell: the sharded planner (``DistributedAssignmentSolver``)
-driven in a closed loop, one round after another, by the churn traffic.
+driven in a closed loop, one round after another, by a traffic generator.
 
 A round runs from the call of ``ingest`` to the pairs that ``plan`` returns;
 the harness's own data plane between rounds (bursts, the plan consumed,
 requesters re-parked, the copies kept for the check) lies outside it.
-``plan_round_ms`` is the rounds' summed time over their number.
+End to end, ``plan_device_us`` is the card's busy time over the window
+over its rounds, from a device trace of the window in every run on the
+card; the rounds' summed host time over their number is the per-layer
+``planner.round_ms.plan``.
+
+The generator is named by the traffic file's ``"generator": G`` (``churn``
+where it names none): the module ``benchmark/<G>.py``, whose
+``Generator(params, nservers, K, R, types, seed)`` takes the traffic file's
+parameters and the configuration's sizes and draws everything from
+``seed``. It provides
+
+* ``snaps``: the servers' snapshots, ``{rank: {"tasks": [(seqno, type,
+  prio, length), ...], "reqs": [(rank, rqseqno, types or None), ...],
+  "stamp": s, "task_stamp": s}}``, what ``ingest`` takes;
+* ``bursts()``: the round's new work, into ``snaps``;
+* ``consume(pairs)``: the data plane takes the round's plan;
+* ``frozen(C)``: a copy of the snapshots as far as a round's plan can read
+  them with C requesters a type in view, for the check.
+
+So a new traffic shape is a new generator file and a traffic file, with no
+edit here.
 """
 
 from __future__ import annotations
@@ -15,8 +35,12 @@ import time
 import numpy as np
 
 from benchmark import reference
-from benchmark.churn import Churn
-from benchmark.common import Spans
+from benchmark.common import Spans, harness_module
+
+
+def generator(traffic: dict):
+    """The traffic's generator class (see above)."""
+    return harness_module(traffic.get("generator", "churn")).Generator
 
 
 def build_solver(conf: dict, device: str):
@@ -53,6 +77,12 @@ class ControlPlanner:
         return pairs
 
 
+def control(shift: int) -> dict:
+    """The run's hooks that put the control in the program's place: the
+    reference planner, priorities coarsened by ``shift`` bits."""
+    return {"make_solver": lambda conf: ControlPlanner(conf, shift)}
+
+
 def run(conf: dict, traffic: dict, seed: int, seconds: float, trace: bool,
         t_process: float, device: str = "cuda", make_solver=None,
         log=print) -> dict:
@@ -67,8 +97,8 @@ def run(conf: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     if hasattr(solver, "warm"):
         solver.warm()
     t_gen = time.perf_counter()
-    gen = Churn(traffic, conf["servers"], conf["max_tasks"],
-                conf["max_requesters"], conf["types"], seed)
+    gen = generator(traffic)(traffic, conf["servers"], conf["max_tasks"],
+                             conf["max_requesters"], conf["types"], seed)
     t_cold = time.perf_counter()
     log(f"set-up: {t - t_process:.3f} s to the solver, its build "
         f"{t_gen - t:.3f} s, the cold pool {t_cold - t_gen:.3f} s")
@@ -102,27 +132,28 @@ def run(conf: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     checks: list = []
     last = None
     rounds: list = []
-    tracer = None
-    if trace:
+    profiler = planner_trace = None
+    t_prof = time.perf_counter()
+    if trace or device == "cuda":
+        # the card's busy time a round (``plan_device_us``) in every run
+        # on the card; traced runs add the host's spans and name the gaps
         from benchmark.common import DeviceTrace
         import tempfile
 
-        tracer = DeviceTrace(tempfile.gettempdir())
-        if hasattr(solver, "_device_plan"):
-            inner = solver._device_plan
+        profiler = DeviceTrace(tempfile.gettempdir(), host=trace)
+        if trace and hasattr(solver, "tracer"):
+            # the planner's own phase spans, on time.perf_counter as the
+            # harness's spans and the profiler's clock mark are
+            from adlb_tpu_torch.runtime.trace import PID_SERVER, Tracer
 
-            def device_plan():
-                t0 = time.perf_counter()
-                out = inner()
-                spans.span("plan", t0, time.perf_counter())
-                return out
-
-            solver._device_plan = device_plan
-    if tracer is not None:
-        tracer.start()
+            planner_trace = solver.tracer = Tracer(0, PID_SERVER)
+        profiler.start()
     gc_before = [g["collections"] for g in gc.get_stats()]
     t_window = time.perf_counter()
-    setup_s = t_window - t_process
+    # the profiler's start (CUPTI's, 7-9 s on the card) is the yardstick's
+    # and not the program's: set-up leaves it out
+    prof_s = t_window - t_prof
+    setup_s = t_window - t_process - prof_s
     t_end = t_window + seconds
     while True:
         t_dp = time.perf_counter()
@@ -140,7 +171,7 @@ def run(conf: dict, traffic: dict, seed: int, seconds: float, trace: bool,
         pairs = solver.plan()
         t2 = time.perf_counter()
         spans.span("ingest", t0, t1)
-        spans.span("extract", t1, t2)
+        spans.span("plan", t1, t2)
         rec = [t0, t2 - t0, solver.last_ingest_ms, solver.last_solve_ms,
                solver.last_extract_ms, len(pairs)]
         if trace:
@@ -163,10 +194,18 @@ def run(conf: dict, traffic: dict, seed: int, seconds: float, trace: bool,
         spans.span("data_plane (benchmark)", t3, time.perf_counter())
     t_closed = time.perf_counter()
     gc_stats = [g["collections"] for g in gc.get_stats()]
-    trace_out = None
-    if tracer is not None:
-        tracer.stop()
-        trace_out = tracer.reduce(spans.items, t_window, t_closed)
+    trace_out = program_spans = busy = None
+    if profiler is not None:
+        profiler.stop()
+        if planner_trace is not None:
+            solver.tracer = None
+            program_spans = window_spans(planner_trace.events, t_window,
+                                         t_closed)
+        if trace:
+            labels = spans.items + [sp[:3] for sp in program_spans or ()]
+            trace_out = profiler.reduce(labels, t_window, t_closed)
+        else:
+            busy = profiler.busy()
     gc.unfreeze()
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     nshards_rows = getattr(solver, "S", conf["servers"])
@@ -201,6 +240,10 @@ def run(conf: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     fifths = [[] for _ in range(5)]
     for r in rounds:
         fifths[min(int(5 * (r[0] - t_window) / seconds), 4)].append(r[1])
+    log(f"the profiler's start {prof_s:.3f} s, left out of set-up; the "
+        f"card's busy time " + ("not read" if busy is None else
+                                f"{busy['busy_s']:.6f} s in {busy['ops']} "
+                                f"operations"))
     log("rounds by fifth of the window: " + ", ".join(
         f"{1e3 * sum(f) / len(f):.2f} ms ({len(f)})" for f in fifths if f)
         + f"; collections in the window by generation "
@@ -210,14 +253,45 @@ def run(conf: dict, traffic: dict, seed: int, seconds: float, trace: bool,
             "rounds": rounds, "checked": len(checks),
             "checked_rounds": [c[0] for c in checks], "rounds_wrong": wrong,
             "reference_s": ref_s, "memory_peak_bytes": peak,
-            "trace": trace_out, "conf": conf, "table_rows": nshards_rows,
-            "C": C, "D": D}
+            "trace": trace_out, "program_spans": program_spans,
+            "device_busy": busy,
+            "conf": conf, "table_rows": nshards_rows, "C": C, "D": D}
+
+
+def window_spans(events: list, lo: float, hi: float) -> list:
+    """The program's trace events that lie in the window [lo, hi]
+    (``time.perf_counter`` seconds) as (name, start, end, args), in
+    seconds."""
+    out = []
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        t0 = ev["ts"] * 1e-6
+        t1 = t0 + ev["dur"] * 1e-6
+        if lo <= t0 and t1 <= hi:
+            out.append((ev["name"], t0, t1, ev.get("args", {})))
+    return out
 
 
 def end_to_end(run: dict) -> dict:
+    """The card's busy time a planning round, in microseconds: the union of
+    its operations' intervals over the window (an untraced run's device
+    trace) over the window's rounds."""
+    r, busy = run["rounds"], run.get("device_busy")
+    return {"plan_device_us": 1e6 * busy["busy_s"] / len(r)
+            if r and busy else None}
+
+
+def counts(run: dict) -> tuple:
+    """(attempted, failed): rounds run and checked rounds wrong."""
+    return len(run["rounds"]), run["rounds_wrong"]
+
+
+def summary(run: dict) -> str:
     r = run["rounds"]
-    return {"plan_round_ms": 1e3 * sum(x[1] for x in r) / len(r)
-            if r else None}
+    mean = 1e3 * sum(x[1] for x in r) / len(r) if r else float("nan")
+    return (f"{len(r)} rounds of {mean:.4f} ms, cold ingest + plan "
+            f"{run['cold_ms']:.1f} ms, {run['checked']} checked")
 
 
 def compared(run: dict) -> dict:

@@ -3,15 +3,24 @@
     python3 benchmark/run.py --workload NAME --seed N --seconds S --trace 0|1
 
 The cell, its configuration and its traffic are found by name through
-``BENCHMARK.json``; its kind (``planner``) is the configuration
-file's, which names the module that runs it. Set-up builds everything from the seed and warms the
-cell's own shapes; the window then runs for ``--seconds``; once it has
-closed, what the program produced is held against the plain reference
-(``reference.py``). With ``--trace 0`` the result carries the cell's
-end-to-end metrics, with ``--trace 1`` its per-layer metrics, read from a
-device trace of the window and the run's records by ``metrics/<name>.py``.
-The last line of standard output is the result; the numbers compared, each
-beside its limit, are the last lines of standard error.
+``BENCHMARK.json``. The configuration file's ``"kind": K`` names the module
+that runs the cell, ``benchmark/<K>_cell.py``, which provides
+``run(conf, traffic, seed, seconds, trace, t_process, device=, log=,
+**hooks)`` (the run's record), ``compared(run)`` (the numbers that decide
+``correct``: name -> (value, limit, rule)), ``end_to_end(run)``,
+``counts(run)`` ((attempted, failed)), ``summary(run)`` (a line for the
+log) and ``control(shift)`` (the hooks that put the control in the
+program's place, for ``control.py``); so a new kind of cell is a new file
+and its entries, with no edit here.
+
+Set-up builds everything from the seed and warms the cell's own shapes;
+the window then runs for ``--seconds``; once it has closed, what the
+program produced is held against the plain reference (``reference.py``).
+With ``--trace 0`` the result carries the cell's end-to-end metrics, with
+``--trace 1`` its per-layer metrics, read from a device trace of the
+window and the run's records by ``metrics/<name>.py``. The last line of
+standard output is the result; the numbers compared, each beside its
+limit, are the last lines of standard error.
 """
 
 from __future__ import annotations
@@ -30,17 +39,15 @@ if str(ROOT) not in sys.path:
 
 from benchmark import common  # noqa: E402
 
-CELL_KINDS = {"planner": "benchmark.planner_cell"}
-
 
 def log(msg: str) -> None:
     print(f"[bench] {msg}", file=sys.stderr, flush=True)
 
 
 def cell_module(kind: str):
-    import importlib
-
-    return importlib.import_module(CELL_KINDS[kind])
+    """The module that runs a configuration of ``kind``:
+    ``benchmark/<kind>_cell.py``."""
+    return common.harness_module(f"{kind}_cell")
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
@@ -48,9 +55,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              manifest: dict = None, conf_patch: dict = None,
              traffic_patch: dict = None, **hooks) -> dict:
     """Run the cell and assemble its result (the line's object, plus the
-    run's record under ``"run"``). ``device="cpu"``, the patches (sizes for
-    a test) and ``hooks`` serve the tests: the command line always runs the
-    files as they are, on the card."""
+    run's record under ``"run"`` and its log line under ``"summary"``).
+    ``device="cpu"``, the patches (sizes for a test) and ``hooks`` serve the
+    tests: the command line always runs the files as they are, on the
+    card."""
     manifest = manifest or common.load_manifest()
     cell, entry = common.find_cell(manifest, workload)
     conf = {**common.config_file(entry), **(conf_patch or {})}
@@ -87,15 +95,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         dev["window_s"] = run["trace"]["window_s"]
         breakdown = {"device_ops": run["trace"]["device_ops"],
                      "idle_gaps": run["trace"]["idle_gaps"]}
-    attempted, failed = run_counts(run)
+    attempted, failed = mod.counts(run)
     return {"correct": ok, "attempted": attempted, "failed": failed,
             "metrics": metrics, "device": dev, "breakdown": breakdown,
-            "compared": compared, "run": run}
-
-
-def run_counts(run: dict) -> tuple:
-    """(attempted, failed): rounds run and checked rounds wrong."""
-    return len(run["rounds"]), run["rounds_wrong"]
+            "compared": compared, "run": run, "summary": mod.summary(run)}
 
 
 def device_name(device: str) -> str:
@@ -135,17 +138,12 @@ def main(argv=None) -> int:
     run = out.pop("run")
     log(f"{args.workload} seed {args.seed}: setup {run['setup_s']:.3f} s, "
         f"window {run['window_s']:.3f} s, reference "
-        f"{run['reference_s']:.3f} s; {summary(run)}")
+        f"{run['reference_s']:.3f} s; {out['summary']}")
     common.report_compared(out["compared"])
     print(common.result_line(out["correct"], out["attempted"], out["failed"],
                              out["metrics"], out["device"],
                              out["compared"], out["breakdown"]), flush=True)
     return 0
-
-
-def summary(run: dict) -> str:
-    return (f"{len(run['rounds'])} rounds, cold ingest + plan "
-            f"{run['cold_ms']:.1f} ms, {run['checked']} checked")
 
 
 if __name__ == "__main__":

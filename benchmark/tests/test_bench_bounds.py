@@ -38,6 +38,60 @@ def test_k5_list_reads_stop_at_depth():
     assert a == 8 * 545 + 5 * 512 + 4 + 4 * (513 + 1)
 
 
+def test_k5_pack_bytes_hand_case():
+    # 3 server slots of R = 100 rows staged at T = 4: the slots 4 B each,
+    # the 300 rows' 4 flag bytes each (1,200, a whole number of words),
+    # then one mask word written a row
+    assert bounds.k5_pack_bytes(300, 100, 4) == 12 + 1200 + 4 * 300 == 2412
+    # T = 3 pads the flags to a word; T = 40 writes two mask words a row
+    assert bounds.k5_pack_bytes(5, 5, 3) == 4 + 4 * 4 + 4 * 5
+    assert bounds.k5_pack_bytes(100, 100, 40) == 4 + 4000 + 8 * 100
+    assert bounds.k5_pack_bytes(0, 100, 4) == 0
+
+
+def test_k5_window_bytes_hand_case():
+    # the cell's shape: 3,812 rows scanned of R = 100 a slot at T = 4,
+    # C = 512: the order's count and 39 slots, one mask word a row, the
+    # rows part [4, 513] and the scanned word written
+    want = 4 * (1 + 39) + 4 * 3812 + 4 * 4 * 513 + 4
+    assert bounds.k5_window_bytes(3812, 100, 4, 512) == want == 23_620
+    # a row more reaches a 40th slot; T = 33 reads two words a row
+    assert bounds.k5_window_bytes(3901, 100, 4, 512) - want == 4 + 4 * 89
+    assert (bounds.k5_window_bytes(10, 10, 33, 1)
+            == 4 * 2 + 8 * 10 + 4 * 33 * 2 + 4)
+
+
+def test_k5_pack_bytes_match_what_the_planner_stages():
+    """The staged buffer the kernel reads is the one the program's span
+    counts: the planner's CPU tier records each ingest's ``rows`` and
+    ``bytes`` (no rank order uploaded)."""
+    from adlb_tpu_torch.runtime.trace import Tracer
+
+    from benchmark import planner_cell
+    from benchmark.tests.test_bench_digest import SEED, small_cell
+
+    conf, traffic = small_cell()
+    gen = planner_cell.generator(traffic)(
+        traffic, conf["servers"], conf["max_tasks"], conf["max_requesters"],
+        conf["types"], SEED)
+    solver = planner_cell.build_solver(conf, "cpu")
+    solver.ingest(gen.snaps)
+    solver.plan()
+    solver.tracer = tracer = Tracer(0)
+    for _ in range(6):
+        gen.bursts()
+        solver.ingest(gen.snaps)
+        gen.consume(solver.plan())
+    staged = [ev["args"] for ev in tracer.events
+              if ev["name"] == "planner:ingest.reqrows"]
+    assert len(staged) >= 4 and all(a["rows"] for a in staged)
+    R, T = conf["max_requesters"], len(conf["types"])
+    for a in staged:
+        assert not a["order_uploaded"]
+        assert (bounds.k5_pack_bytes(a["rows"], R, T)
+                == a["bytes"] + 4 * a["rows"])
+
+
 def test_roofline_share():
     # 3.35e6 bytes take 1 us at 3.35 TB/s: in 2 us that is 50%
     assert bounds.roofline_pct(3.35e6, 2e-6) == pytest.approx(50.0)
