@@ -3,12 +3,15 @@ PyTorch version.
 
 :func:`auction_windows` is the sharded planner's device plan after the
 merge. From the requester table resident on the card it builds the
-requester windows (the host's ``_reqwin`` and ``_compact_reqwin``): the
-slot table over dense requester ids ``rwc [T, C]`` (``U = T * C`` marks an
-empty slot), the slots per type ``lens [T]`` and the open requesters
-``open0 [U + 1]``. Then it computes what the ``lax.while_loop`` of the JAX
-package's fused planning program computes (``adlb_tpu/balancer/
-distributed.py``, ``_build_plan_fn``, ``body`` / ``cond``): from the merged
+requester windows (the host's ``_reqwin`` and ``_compact_reqwin``) of the
+live types, those whose candidate list starts with a real candidate (a
+type with none can commit nothing, so its window stays empty and the scan
+stops once every live window holds C rows): the slot table over dense
+requester ids ``rwc [T, C]`` (``U = T * C`` marks an empty slot), the slots
+per type ``lens [T]`` and the open requesters ``open0 [U + 1]``. Then it
+computes what the ``lax.while_loop`` of the JAX package's fused planning
+program computes (``adlb_tpu/balancer/distributed.py``,
+``_build_plan_fn``, ``body`` / ``cond``): from the merged
 per-type candidate lists ``gp, gg [T, L]`` (prio desc, gid asc, ``_NEG`` /
 ``_I32MAX`` padded; the device plan hands over the first ``D = C + m + 1``
 columns of the merge,
@@ -184,12 +187,12 @@ def _check_windows(gp, gg, table, order, delta, n_delta: int, C: int,
 class Workspace:
     """The kernel's card buffers at one (T, C, m) shape, reused from launch
     to launch: ``out`` (assigned ``[T, C + 1]``, the rows ``[T, C + 1]``,
-    the rounds run and ``scanned``) and, where the working set (about 13 T
-    C + 21 T m bytes and the scan's counts) does not fit in shared memory,
-    the kernel's scratch buffer. ``lists_staged``: the lists' first C + m +
-    1 columns (8 T (C + m + 1) bytes) fit beside the working set in shared
-    memory, and each launch stages them there. ``threads``: the launch's
-    block size. Building the kernel comes first."""
+    the rounds run, ``scanned`` and ``lost``) and, where the working set
+    (about 13 T C + 21 T m bytes and the scan's counts) does not fit in
+    shared memory, the kernel's scratch buffer. ``lists_staged``: the lists'
+    first C + m + 1 columns (8 T (C + m + 1) bytes) fit beside the working
+    set in shared memory, and each launch stages them there. ``threads``:
+    the launch's block size. Building the kernel comes first."""
 
     def __init__(self, T: int, C: int, m: int, device) -> None:
         _ready(device)
@@ -199,7 +202,7 @@ class Workspace:
         self.threads = _lib.adlb_auction_windows_threads(T, m)
         n = T * (C + 1)
         with torch.cuda.device(device):
-            self.out = torch.empty((2 * n + 2,), dtype=torch.int32,
+            self.out = torch.empty((2 * n + 3,), dtype=torch.int32,
                                    device=device)
             nbytes = _lib.adlb_auction_windows_scratch_bytes(T, C, m)
             self.scratch = (torch.empty((nbytes,), dtype=torch.uint8,
@@ -235,17 +238,18 @@ class Workspace:
         return self.out
 
 
-def windows_torch(table, order, delta, n_delta: int, T: int, C: int):
+def windows_torch(table, order, delta, n_delta: int, T: int, C: int, live):
     """The windows prologue's plain version: packs the first ``n_delta``
     slots' rows of ``delta`` (:func:`delta_ints`) into ``table`` (in place,
     as the kernel does), then scans the rows of the slots in use in rank
-    order (``order``) into each type's window of the first C accepting
-    rows. Returns (rwc [T, C]
-    int32 of dense ids in scan order, ``U = T * C`` past a window; lens [T]
-    int32; open0 [U + 1] bool; rows [T, C + 1] int32: the physical row of
-    each slot, -1 past the window, its length in column C; scanned: the
-    rows the windows took in, up to the row that filled the last window, or
-    every row in use when one stays short)."""
+    order (``order``) into each live type's window (``live`` [T] bool) of
+    the first C accepting rows, until every one holds C; the other windows
+    stay empty. Returns (rwc [T, C] int32 of dense ids in scan order, ``U
+    = T * C`` past a window; lens [T] int32; open0 [U + 1] bool; rows [T, C
+    + 1] int32: the physical row of each slot, -1 past the window, its
+    length in column C; scanned: the rows the windows took in, up to the
+    row that filled the last live window, 0 when no type is live, or every
+    row in use when a live window stays short)."""
     dev = table.device
     NR, W = table.shape
     R = NR // (order.shape[0] - 1)
@@ -271,9 +275,12 @@ def windows_torch(table, order, delta, n_delta: int, T: int, C: int):
     fill = torch.zeros((T,), dtype=torch.int64, device=dev)
     nuniq = 0
     CHUNK = 16384
+    live = live.to(device=dev, dtype=torch.bool)
     for a in range(0, rows_all.shape[0], CHUNK):
+        if bool(((lens >= C) | ~live).all()):
+            break
         rr = rows_all[a:a + CHUNK]
-        bits = ((table[rr][:, widx] >> shift) & 1).bool()  # [n, T]
+        bits = ((table[rr][:, widx] >> shift) & 1).bool() & live  # [n, T]
         rank = lens[None, :] + torch.cumsum(bits, 0) - 1
         take = bits & (rank < C)
         taken = take.any(dim=1)
@@ -286,10 +293,9 @@ def windows_torch(table, order, delta, n_delta: int, T: int, C: int):
         fill[t[last]] = a + i[last] + 1
         nuniq += int(taken.sum())
         lens = torch.clamp(lens + bits.sum(dim=0), max=C)
-        if bool((lens >= C).all()):
-            break
     rows[:, C] = lens.to(torch.int32)
-    full = bool((lens >= C).all())
+    # fill is set for the live windows alone
+    full = bool(((lens >= C) | ~live).all())
     scanned = int(fill.max()) if full else rows_all.shape[0]
     open0 = torch.arange(U + 1, device=dev) < nuniq
     return rwc, lens.to(torch.int32), open0, rows, scanned
@@ -305,7 +311,9 @@ def auction_torch(gp, gg, rwc, lens, open0, rounds: int, m: int):
 
 
 def _rounds_torch(gp, gg, rwc, lens, open0, rounds: int, m: int):
-    """:func:`auction_torch`'s rounds: (assigned, the rounds run)."""
+    """:func:`auction_torch`'s rounds: (assigned, the rounds run, the
+    entries that lost their requester to another type's candidate, summed
+    over the rounds)."""
     _check(gp, gg, rwc, lens, open0, m)
     dev = gp.device
     T, L = gp.shape
@@ -323,7 +331,7 @@ def _rounds_torch(gp, gg, rwc, lens, open0, rounds: int, m: int):
     head = torch.zeros((T,), dtype=i32, device=dev)
     open_ = open0.clone()
     assigned = torch.full((T, C + 1), -1, dtype=i32, device=dev)
-    rnd, last = 0, 1
+    rnd, last, lost = 0, 1, 0
     while rnd < rounds and last > 0:
         # next m+1 untaken candidates per type (head slice)
         cidx = head[:, None] + arange_m1[None, :]
@@ -353,6 +361,7 @@ def _rounds_torch(gp, gg, rwc, lens, open0, rounds: int, m: int):
             0, flat, torch.where(is_pmax, mg, _I32MAX).reshape(-1), "amin")
         win = is_pmax & (mg == bg[rid])
         lose = valid & ~win
+        lost += int(lose.sum())
         # global commit threshold: best key among losers and each type's
         # truncation sentinel (only while it has an open slot)
         sent = (nopen > 0) & (trunc_p > _NEG)
@@ -375,18 +384,19 @@ def _rounds_torch(gp, gg, rwc, lens, open0, rounds: int, m: int):
         head = head + commit.sum(dim=1, dtype=i32)
         rnd += 1
         last = int(commit.sum())
-    return assigned, rnd
+    return assigned, rnd, lost
 
 
 def auction_windows(gp, gg, table, order, delta, n_delta: int, rounds: int,
                     m: int, C: int, work: Workspace | None = None):
-    """The sharded planner's device plan after the merge: the windows built
-    from the resident requester table (``table`` [S * R, W] int32, updated
-    in place by the first ``n_delta`` slots' rows of ``delta``; ``order``
-    [1 + S] int32: the slots in use, then the slots in rank order), then
-    the rounds over them. Returns one int32 tensor of ``2 * T * (C + 1) +
-    2``: assigned [T, C + 1] (the module docstring), the rows [T, C + 1]
-    (:func:`windows_torch`), the rounds run and ``scanned``. On CUDA
+    """The sharded planner's device plan after the merge: the live types'
+    windows built from the resident requester table (``table`` [S * R, W]
+    int32, updated in place by the first ``n_delta`` slots' rows of
+    ``delta``; ``order`` [1 + S] int32: the slots in use, then the slots in
+    rank order), then the rounds over them. Returns one int32 tensor of
+    ``2 * T * (C + 1) + 3``: assigned [T, C + 1] (the module docstring),
+    the rows [T, C + 1] (:func:`windows_torch`), the rounds run,
+    ``scanned`` and ``lost`` (:func:`_rounds_torch`). On CUDA
     tensors one launch of the kernel into ``work`` (a :class:`Workspace` at
     ``(T, C, m)``; a new one when None), on CPU tensors the plain versions;
     any other device raises."""
@@ -402,8 +412,10 @@ def auction_windows(gp, gg, table, order, delta, n_delta: int, rounds: int,
         _check_windows(gp, gg, table, order, delta, n_delta, C, m)
         T = gp.shape[0]
         rwc, lens, open0, rows, scanned = windows_torch(
-            table, order, delta, n_delta, T, C)
-        assigned, rnd = _rounds_torch(gp, gg, rwc, lens, open0, rounds, m)
+            table, order, delta, n_delta, T, C, gp[:, 0] > _NEG)
+        assigned, rnd, lost = _rounds_torch(gp, gg, rwc, lens, open0, rounds,
+                                            m)
         return torch.cat((assigned.reshape(-1), rows.reshape(-1),
-                          torch.tensor([rnd, scanned], dtype=torch.int32)))
+                          torch.tensor([rnd, scanned, lost],
+                                       dtype=torch.int32)))
     raise ValueError(f"no auction for device {gp.device}")

@@ -51,15 +51,22 @@ The solver runs one of two tiers over those steps:
   the requester table resident there (:class:`_Requesters`: each ingest
   ships the rewritten servers' rows, the kernel applies them) and gives
   their rows dense ids (U = T*C distinct ids at most, so the per-round
-  scatters never touch O(requesters) state); their plain torch versions
-  on ``"cpu"``. A planning round ends in one [2, T, C+1] readback (the
-  commits and each slot's requester row) — no sort on the card, no
-  per-round host merge, no host window scan, no O(S) host work.
+  scatters never touch O(requesters) state); it builds the windows of the
+  live types alone (those with a candidate this plan: a type without one
+  commits nothing) and stops its scan once each of those holds C rows, so
+  a type that few requesters accept and no task needs costs no scan of
+  the whole table; their plain torch versions on ``"cpu"``. A planning
+  round ends in one readback of [2, T, C+1] and three counts (the commits,
+  each slot's requester row, the rounds run, the rows scanned and the
+  entries lost to another type) — no sort on the card, no per-round host
+  merge, no host window scan, no O(S) host work.
 - ``auction="host"``: the retained twin — steps 2-3 on the planner host
   (numpy), with the merged candidate lists cached and patched in place
   between device sweeps (step 1 on the cards, each card's per-shard lists
-  read back). The twin is what the device tier is fuzz-checked against
-  (exact same commits from the same state).
+  read back), over every type's window (:func:`_reqwin`). The twin is what
+  the device tier is fuzz-checked against (exact same commits from the
+  same state; the device tier's windows of the live types equal the
+  twin's, the others are empty).
 
 Task ids are **rank-keyed**: gid = rank * K + ki (``row_rank`` maps the
 resident row to its server rank; int32 on device, so rank * K must stay
@@ -293,7 +300,7 @@ def _merge_shard_major(cp, cg):
 _NO_UPLOAD = (None,) * 5
 _NO_REQWIN = (None,) * 5
 #: a plan's trace record without a device plan (host tier)
-_NO_DEVICE_PLAN = (None,) * 6
+_NO_DEVICE_PLAN = (None,) * 8
 
 
 def _ingest_spans(rec: tuple) -> list:
@@ -337,14 +344,16 @@ def _plan_spans(rec: tuple) -> list:
     its device plan's enqueue and readback (or the host tier's sweep and
     auction) and the extraction."""
     (rnd, t0, t1, t2, pairs, swept, e0, e1, e2, launches, nbytes,
-     scanned) = rec
+     scanned, auction_rounds, lost) = rec
     p = "planner:plan"
     if e0 is not None:
         out = [(p + ".enqueue", e0, e1, {"round": rnd, "parent": p,
                                          "launches": launches}),
                (p + ".readback", e1, e2, {"round": rnd, "parent": p,
                                           "bytes": nbytes,
-                                          "scanned": scanned})]
+                                          "scanned": scanned,
+                                          "rounds": auction_rounds,
+                                          "lost": lost})]
     else:
         out = [(p + ".host", t0, t1, {"round": rnd, "parent": p,
                                       "swept": swept})]
@@ -787,13 +796,20 @@ class DistributedAssignmentSolver:
         # (the auction kernel builds the windows from it), the slots whose
         # requester rows changed since the last ingest, and the last device
         # plan's windows as physical requester rows, [T, C + 1] (-1 past a
-        # window, its length in column C)
+        # window, its length in column C; a type with no candidate has an
+        # empty window)
         self._reqs: Optional[_Requesters] = None
         self._req_dirty_si: set = set()
         self._plan_rows: Optional[np.ndarray] = None
         #: the requester rows the last device plan's windows took in (up to
-        #: the row that filled the last window, or every row in use)
+        #: the row that filled the last window of a type with a candidate,
+        #: 0 when no type has one, or every row in use when such a window
+        #: stays short)
         self.last_scanned: Optional[int] = None
+        #: the auction rounds the last device plan ran, and the entries in
+        #: them that lost their requester to another type's candidate
+        self.last_rounds: Optional[int] = None
+        self.last_lost: Optional[int] = None
         # the kernels' buffers on a card: the candidates (both tiers; one per
         # piece, _cand_work with logical shards) and the auction (device tier)
         self._cand_work: Optional[_candidates.Workspace] = None
@@ -1200,7 +1216,8 @@ class DistributedAssignmentSolver:
         """The requester windows as the host builds them from its mirror
         (:func:`_reqwin` in rank order): (reqwin [T, C] physical rows,
         lens [T]). The host tier plans over them; on the device tier they
-        are what the auction kernel's prologue builds."""
+        are what the auction kernel's prologue builds for the types with a
+        candidate, the others' windows left empty."""
         if self._row_perm is None:
             self._rank_order()
         return _reqwin(self._req_mask, self._req_valid, self.T, self.C,
@@ -1457,7 +1474,10 @@ class DistributedAssignmentSolver:
         """:meth:`_enqueue_device_plan`, then one readback of its output:
         the host blocked until the device's work and the copy have landed.
         Returns the committed gids [T, C]; keeps each slot's requester row
-        for the extraction."""
+        for the extraction (the windows of the types with a candidate; the
+        others are empty, as the kernel's scan stops once every such window
+        holds C rows) and the counts that follow the rows: the auction
+        rounds run, ``scanned`` and the entries lost to another type."""
         tr = self.tracer
         if tr is not None:
             launches = (_candidates.launches + _candidates.merge_launches
@@ -1469,12 +1489,14 @@ class DistributedAssignmentSolver:
         T, C = self.T, self.C
         n = T * (C + 1)
         self._plan_rows = flat[n:2 * n].reshape(T, C + 1)
-        self.last_scanned = int(flat[2 * n + 1])
+        self.last_rounds, self.last_scanned, self.last_lost = (
+            int(x) for x in flat[2 * n:2 * n + 3])
         if tr is not None:
             self._plan_readings = (
                 t0, t1, clock(), _candidates.launches
                 + _candidates.merge_launches + _auction.launches - launches,
-                flat.nbytes, self.last_scanned)
+                flat.nbytes, self.last_scanned, self.last_rounds,
+                self.last_lost)
         return flat[:n].reshape(T, C + 1)[:, :C]
 
     def plan(self) -> list:

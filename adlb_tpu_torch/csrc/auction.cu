@@ -18,7 +18,10 @@
 // and the loop ends after `rounds` rounds or after a round with no commit.
 // The output is assigned[T, C + 1]: the gid committed to each slot, or -1
 // (column C is the JAX program's scatter dump and stays -1), then the rows
-// of the windows, then the number of rounds run, then `scanned` (below).
+// of the windows, then the number of rounds run, then `scanned` (below),
+// then `lost`: the entries that lost their requester to another type's
+// candidate, summed over the rounds (step 3's losers; a requester sits at
+// most once in a type's window, so every loser lost to another type).
 //
 // Inputs (the wrapper is adlb_tpu_torch/balancer/auction.py):
 //   gp, gg  [T, L] int32  merged candidate (prio, gid) lists; padding is
@@ -37,7 +40,12 @@
 // The prologue replaces the host's window scan (distributed.py `_reqwin`)
 // and compaction (`_compact_reqwin`, the slot table rwc [T, C] over dense
 // requester ids, U = T * C marking an empty slot, the window lengths and
-// the open flags over the ids) of every round. It scans the rows of the
+// the open flags over the ids) of every round, for the live types: a type
+// is live when its list's first candidate is not padding (one read a type
+// where the scan needs it). A type that is not live can commit nothing, so
+// its window is not needed: the scan counts it full from the start (its
+// ranks start at C, so it takes no row and gives no row a dense id) and it
+// is left empty, a prefix of the host's window. It scans the rows of the
 // slots in use in rank order, spans of kRowsPerThread block widths at a time
 // (the kernel launches at least 512
 // threads, so that the SM's schedulers interleave warps through the scan's
@@ -46,13 +54,14 @@
 // accepting rows), a second ballot and prefix give each row that some window
 // takes a dense id in scan order (the auction uses an id only as an
 // identity: atomicMax on the task key decides conflicts, so the commits are
-// those of the host's sorted ids), and the scan stops once every window
-// holds C rows. Its output after assigned: rows[T, C + 1], the physical row
-// of each slot (-1 past its window) with column C holding the window's
-// length, then the rounds run, then `scanned`: the rows the windows took in
-// (up to the row that filled the last window, or every row in use when one
-// stays short; the block reads at most one span of kRowsPerThread x threads
-// rows past it).
+// those of the host's sorted ids), and the scan stops once every live
+// type's window holds C rows. Its output after assigned: rows[T, C + 1], the
+// physical row of each slot (-1 past its window) with column C holding the
+// window's length, then the rounds run, then `scanned`: the rows the windows
+// took in (up to the row that filled the last live window, none when no type
+// is live, or every row in use when a live window stays short; the block
+// reads at most one span of kRowsPerThread x threads rows past it), then
+// `lost`.
 //
 // What bounds it on this card: the rounds are a dependent chain (each reads
 // what the last one closed), so the whole loop runs in one thread block, and
@@ -80,7 +89,8 @@
 //     open slot raise the threshold); then one warp per type commits its
 //     prefix. Each shared scalar is reset by one thread between the barrier
 //     after its last read and the barrier before its next write, so no
-//     barrier is spent on resets.
+//     barrier is spent on resets. Each loser is counted where it loses, in
+//     a shared count read after the last round.
 // The working set (requester winners over U + 1 ids, open flags, the slot
 // table, the per-entry state and the scan's counts, about 13 T C + 21 T m
 // bytes, plus the staged lists, 8 T (C + m + 1) bytes) lives in shared
@@ -236,18 +246,21 @@ __device__ int warp_prefix(int* cnt, int stride, int col, int K, int base) {
 }
 
 // The windows' prologue, after the staged rows were packed into `table`:
-// the requester rows scanned in rank order into each type's window (see the
-// header). Each thread holds its rows of a span and their first mask word
-// in registers, loaded together; `table` is written earlier in the same
-// launch, so it is read with plain loads, not through the read-only path.
-// Leaves rwc, slen and open as the host's tables would give them, and
-// writes the rows part of `out`, and `scanned`. Every thread of the block
-// calls it.
+// the requester rows scanned in rank order into each live type's window
+// (see the header; type t is live when its list's first priority, lp[t *
+// ls], is not padding). Each thread holds its rows of a span and their first
+// mask word in registers, loaded together; `table` is written earlier in the
+// same launch, so it is read with plain loads, not through the read-only
+// path. Leaves rwc, slen and open as the host's tables would give them for
+// the live types (the other windows empty), writes the rows part of `out`,
+// and raises `reach` (0 before) to the row that filled each live window, or
+// to kI32Max where one stays short: `scanned`, written after the rounds.
+// Every thread of the block calls it.
 __device__ void build_windows(const int* table,
                               const int* __restrict__ order, int R, int W,
-                              int T, int C, int* rwc, int* slen,
-                              unsigned char* open, int* cnt, int* out,
-                              int* s_uniq) {
+                              int T, int C, const int* lp, int ls, int* rwc,
+                              int* slen, unsigned char* open, int* cnt,
+                              int* out, int* s_uniq, int* reach) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nth = blockDim.x, nwarps = nth >> 5;
   const int U = T * C, T1 = T + 1, K = kRowsPerThread * nwarps;
@@ -299,9 +312,11 @@ __device__ void build_windows(const int* table,
     }
     __syncthreads();
     // 2. per type, one warp: the counts turned into each warp's first rank,
-    // in scan order, from the window's length so far
+    // in scan order, from the window's length so far (from C where the type
+    // is not live: its window takes no row and counts as full)
     for (int t = warp; t < T; t += nwarps) {
-      const int run = warp_prefix(cnt, T1, t, K, slen[t]);
+      const int run = warp_prefix(cnt, T1, t, K,
+                                  lp[(size_t)t * ls] > kNeg ? slen[t] : C);
       __syncwarp();
       if (lane == 0) slen[t] = run < C ? run : C;
     }
@@ -350,15 +365,14 @@ __device__ void build_windows(const int* table,
   }
   const int nuniq = *s_uniq;
   for (int i = tid; i <= U; i += nth) open[i] = i < nuniq;
-  for (int t = tid; t < T; t += nth) rows[(size_t)t * (C + 1) + C] = slen[t];
-  if (tid == 0) {
-    bool full = true;
-    int reach = 0;
-    for (int t = 0; t < T; ++t) {
-      full &= slen[t] >= C;
-      reach = fill[t] > reach ? fill[t] : reach;
-    }
-    out[2 * (size_t)T * (C + 1) + 1] = full ? reach : nrows;
+  // a window no plan needs is empty (the rounds read none of its slots);
+  // the live windows, each full, give the row that filled the last of them
+  for (int t = tid; t < T; t += nth) {
+    const bool live = lp[(size_t)t * ls] > kNeg;
+    const int n = live ? slen[t] : 0;
+    slen[t] = n;
+    rows[(size_t)t * (C + 1) + C] = n;
+    if (live) atomicMax(reach, n < C ? kI32Max : fill[t]);
   }
 }
 
@@ -374,7 +388,7 @@ auction_kernel(const int* __restrict__ gp, const int* __restrict__ gg, int L,
   static_assert(kShared || !kStage, "the lists are staged in shared memory");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned long long s_thr;
-  __shared__ int s_total, s_uniq;
+  __shared__ int s_total, s_uniq, s_lost, s_reach;
   unsigned char* ws = kShared ? smem : scratch;
   // no head slice reaches past index C + m (a type commits at most C times,
   // one per slot, and slots never reopen), so the first C + m + 1 columns
@@ -430,11 +444,13 @@ auction_kernel(const int* __restrict__ gp, const int* __restrict__ gg, int L,
     s_thr = kThresholdNone;
     s_total = 0;
     s_uniq = 0;
+    s_lost = 0;
+    s_reach = 0;
   }
   if (kStage) asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();
-  build_windows(table, order, R, W, T, C, rwc, slen, open,
-                (int*)(ws + lay.scan), out, &s_uniq);
+  build_windows(table, order, R, W, T, C, lp, ls, rwc, slen, open,
+                (int*)(ws + lay.scan), out, &s_uniq, &s_reach);
   // live candidates per type: (gp[t] > _NEG).sum(), one warp per type (the
   // lists are prio desc, _NEG-padded at the end)
   for (int t = warp; t < T; t += nwarps) {
@@ -498,10 +514,12 @@ auction_kernel(const int* __restrict__ gp, const int* __restrict__ gg, int L,
     // an open slot, raises the threshold
     for (int e = tid; e < E; e += nth) {
       if (eflag[e]) {
-        if (best[erid[e]] == ekey[e])
+        if (best[erid[e]] == ekey[e]) {
           eflag[e] = 3;
-        else
+        } else {
           atomicMax(&s_thr, ekey[e]);
+          atomicAdd(&s_lost, 1);
+        }
       }
     }
     for (int t = tid; t < T; t += nth) {
@@ -543,7 +561,13 @@ auction_kernel(const int* __restrict__ gp, const int* __restrict__ gg, int L,
     ++rnd;
     if (n == 0) break;  // maximal: nothing more can commit
   }
-  if (tid == 0) out[2 * (size_t)T * (C + 1)] = rnd;
+  // the windows' reach and every loss were posted before the last barrier
+  if (tid == 0) {
+    int* counts = out + 2 * (size_t)T * (C + 1);
+    counts[0] = rnd;
+    counts[1] = s_reach == kI32Max ? order[0] * R : s_reach;
+    counts[2] = s_lost;
+  }
 }
 
 }  // namespace
@@ -601,8 +625,8 @@ long long adlb_auction_windows_scratch_bytes(int T, int C, int m) {
 // with the working set in shared memory, the working set there alone, or
 // all in `scratch`. gp, gg [T, L]; the resident requester table [S * R, W]
 // int32 (W * 32 >= T), updated in place by the first n_delta entries of
-// `delta`; the rank order [1 + S] int32; out holds 2 * T * (C + 1) + 2 ints
-// (assigned, rows, rounds run, scanned). `scratch` holds
+// `delta`; the rank order [1 + S] int32; out holds 2 * T * (C + 1) + 3 ints
+// (assigned, rows, rounds run, scanned, lost). `scratch` holds
 // adlb_auction_windows_scratch_bytes(T, C, m) bytes of device memory, or is
 // null when that is 0. Returns the CUDA error code of the launch; does not
 // synchronise.

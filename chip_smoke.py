@@ -724,6 +724,26 @@ def plan_auction(solver, gp, gg):
                                        rq.delta, 0, solver.rounds)
 
 
+def windows_agree(rows, rw, lens, live) -> bool:
+    """The auction's windows (``rows`` [T, C + 1]: each slot's requester
+    row, -1 past the window, its length in column C) against the host's
+    ``_reqwin`` (``rw`` [T, C], ``lens``): each live type's window (a type
+    whose list starts with a candidate) equal, each other type's a prefix
+    (the kernel builds the live windows alone)."""
+    rows = np.asarray(rows)
+    C = rw.shape[1]
+    for t in range(rw.shape[0]):
+        n = int(rows[t, C])
+        if live[t]:
+            ok = n == lens[t] and np.array_equal(rows[t, :C], rw[t])
+        else:
+            ok = (n <= lens[t] and np.array_equal(rows[t, :n], rw[t, :n])
+                  and (rows[t, n:C] == -1).all())
+        if not ok:
+            return False
+    return True
+
+
 def host_req_tables(solver) -> tuple:
     """The requester tables of the auction without its prologue, as the host
     built them before the prologue did (``_reqwin`` on the host mirror and
@@ -1259,8 +1279,7 @@ def check_auction(auction, report):
             if not (torch.equal(got, plain)
                     and torch.equal(got[:n].view(T, C + 1), given)
                     and np.array_equal(given.numpy()[:, :C], want)
-                    and np.array_equal(rows[:, :C], rw)
-                    and np.array_equal(rows[:, C], lens)):
+                    and windows_agree(rows, rw, lens, gp[:, 0] > NEG)):
                 raise AssertionError(f"auction kernel disagrees on case "
                                      f"{name}, L={lists[0].shape[1]}")
         report(f"phase 4: auction {name} C={C} L={gp.shape[1]} and L=D={D} "
@@ -1525,9 +1544,8 @@ def time_device_plan(solver, auction, candidates, report):
     n = T * (C + 1)
     if not (np.array_equal(built[:n].reshape(T, C + 1), plain.cpu().numpy())
             and np.array_equal(plain.cpu().numpy()[:, :C], want)
-            and np.array_equal(built[n:2 * n].reshape(T, C + 1)[:, :C], rw)
-            and np.array_equal(built[n:2 * n].reshape(T, C + 1)[:, C],
-                               host_lens)):
+            and windows_agree(built[n:2 * n].reshape(T, C + 1), rw,
+                              host_lens, full_p[:, 0] > NEG)):
         raise AssertionError("auction kernel disagrees at the 10k row")
     c0, a0 = candidates.launches, auction.launches
     solver._device_plan()

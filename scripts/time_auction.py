@@ -16,12 +16,13 @@ this checkout's device plan launches it, nothing staged), one without it
 (a checkout from before the prologue) runs the rounds over the
 host-built tables (``_reqwin`` and ``_compact_reqwin``), so beside a
 parent it gives the auction's time with and without the prologue.
-Each build is launched on four inputs: the lists and requester table of
+Each build is launched on five inputs: the lists and requester table of
 ``plan_bench``'s 10,000-server row (8 shards, T=8, C=512, m=32, D=545,
-16 rounds allowed), those of the benchmark cell ``planner131k.churn`` at
-its state after the warm-up rounds (``benchmark/configs/planner-131k.json``
-under ``traffic/churn.json``; T=4), and chip_smoke's phase-4 "10k-row
-shape" instance (random masks at the same T, m, C) over its first D
+16 rounds allowed), those of the benchmark cells ``planner131k.churn``
+(``benchmark/configs/planner-131k.json`` under ``traffic/churn.json``;
+T=4) and ``planner131k.gfmc`` (``gfmc-131k.json`` under ``gfmc.json``;
+T=5) at their state after the warm-up rounds, and chip_smoke's phase-4
+"10k-row shape" instance (random masks at the same T, m, C) over its first D
 columns and over the full [T, 8 * D] merge. Every build's commits and
 rounds run must equal this checkout's. The builds are timed in turn, ten
 times, the order reversed every other time: the device time per launch
@@ -146,7 +147,8 @@ def launcher(lib, inp: dict):
     T, C = rwc.shape
     n = T * (C + 1)
     windows = hasattr(lib, "adlb_auction_windows")
-    out = torch.empty((2 * n + 2,), dtype=torch.int32, device="cuda")
+    # room for the longest output: assigned, rows, rounds, scanned, lost
+    out = torch.empty((2 * n + 3,), dtype=torch.int32, device="cuda")
     nbytes = (lib.adlb_auction_windows_scratch_bytes if windows
               else lib.adlb_auction_scratch_bytes)(T, C, m)
     scratch = (torch.empty((nbytes,), dtype=torch.uint8, device="cuda")
@@ -173,19 +175,20 @@ def launcher(lib, inp: dict):
     return go, result
 
 
-def cell_solver(seed: int = 2**31 + 15):
-    """A device-tier solver at the benchmark cell's state: the cell's
-    configuration, its cold ingest and plan and its warm rounds under the
-    churn traffic from ``seed``."""
-    from benchmark.churn import Churn
-    from benchmark.planner_cell import build_solver
+def cell_solver(seed: int = 2**31 + 15, config: str = "planner-131k",
+                traffic: str = "churn"):
+    """A device-tier solver at a benchmark cell's state: the cell's
+    configuration, its cold ingest and plan and its warm rounds under its
+    traffic from ``seed``."""
+    from benchmark.planner_cell import build_solver, generator
 
-    conf = json.loads((ROOT / "benchmark/configs/planner-131k.json")
+    conf = json.loads((ROOT / f"benchmark/configs/{config}.json")
                       .read_text())
-    traffic = json.loads((ROOT / "benchmark/traffic/churn.json").read_text())
+    traffic = json.loads((ROOT / f"benchmark/traffic/{traffic}.json")
+                         .read_text())
     sol = build_solver(conf, "cuda")
-    gen = Churn(traffic, conf["servers"], conf["max_tasks"],
-                conf["max_requesters"], conf["types"], seed)
+    gen = generator(traffic)(traffic, conf["servers"], conf["max_tasks"],
+                             conf["max_requesters"], conf["types"], seed)
     sol.ingest(gen.snaps)
     sol.plan()
     for _ in range(int(traffic["warm_rounds"])):
@@ -236,7 +239,9 @@ def main() -> int:
                          device="cuda", on_row=lambda s, row: kept.append(s))
     solver = kept[0]
     inputs = {"plan_bench_10k": solver_input(chip_smoke, solver),
-              "planner131k_churn": solver_input(chip_smoke, cell_solver())}
+              "planner131k_churn": solver_input(chip_smoke, cell_solver()),
+              "planner131k_gfmc": solver_input(chip_smoke, cell_solver(
+                  config="gfmc-131k", traffic="gfmc"))}
     # chip_smoke's seed for this case: T * 1000 + m * 10 + nshards
     (_, _, rw, _, _), ins, D, win = chip_smoke.auction_instance(
         np.random.default_rng(8328), 8, 32, 8, 16, sl=32)

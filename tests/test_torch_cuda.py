@@ -18,8 +18,12 @@ random tables (the benchmark cell's shape, the 10k row's, two mask words
 a row, past shared memory, empty windows), and over churn rounds
 (``window_churn.py``: joins and leaves, any-type requesters, multi-job
 types, a rare type, an empty table) at 1, 2 and 8 shards and across 2 and
-4 cards where present: windows equal to ``_reqwin`` on the host mirror,
-plans equal to the CPU device tier's and the host tier's.
+4 cards where present: windows equal to ``_reqwin`` on the host mirror
+(the live types'; the others a prefix), plans equal to the CPU device
+tier's and the host tier's. On GFMC's request shape (``gfmc_shape.py``)
+at the benchmark cell's sizes and a small one, with D live and with no
+live type: bit-equal to its plain version, so the live windows, ``scanned``,
+the rounds and the losses to another type too.
 
 The candidates (with the cross-shard merge): per shard and merged, bit-equal
 to the plain version and to a numpy twin on fuzzed instances (truncated
@@ -64,8 +68,10 @@ from adlb_tpu_torch.balancer import greedy_sweep
 from adlb_tpu_torch.balancer import distributed as dist
 from adlb_tpu_torch.balancer import plan_bench
 from adlb_tpu_torch.balancer.solve import _NEG, AssignmentSolver, _host_greedy
-from window_churn import (CASES as CHURN_CASES, WindowChurn, check_windows,
-                          random_windows, solver_kwargs, staged_rows)
+from gfmc_shape import CELL as GFMC_CELL, SMALL as GFMC_SMALL, gfmc_windows
+from window_churn import (CASES as CHURN_CASES, WindowChurn, assert_windows,
+                          check_windows, random_windows, solver_kwargs,
+                          staged_rows)
 
 
 def _random_instance(rng, nt, nr, t, pad=0.25):
@@ -290,8 +296,7 @@ def test_auction_kernel_matches_plain_and_host(card, T, m, nshards, rounds,
             *cpu_lists, *tables, rounds, m))
         np.testing.assert_array_equal(got[:n].view(T, C + 1)[:, :C], want)
         rows = got[n:2 * n].view(T, C + 1).numpy()
-        np.testing.assert_array_equal(rows[:, :C], rw)
-        np.testing.assert_array_equal(rows[:, C], lens)
+        assert_windows(rows, rw, lens, gp[:, 0] > _NEG)
     assert (want >= 0).sum() > 0
     assert (work.scratch is not None) == (slots == 1024)
     assert work.lists_staged == (slots is None)
@@ -370,7 +375,7 @@ def test_auction_windows_kernel_matches_plain(card, T, C, R, density, n_delta,
     want = auction.auction_windows(*cpu[:2], *cpu[2:], n_delta, rounds, m, C)
     assert torch.equal(got.cpu(), want)
     assert int(work.rounds_run) == int(want[2 * T * (C + 1)])
-    assert int(got[-1]) == inst["reach"]
+    assert int(got[2 * T * (C + 1) + 1]) == inst["reach"]
     np.testing.assert_array_equal(dev[2].cpu().numpy(), inst["want_table"])
     assert (work.scratch is not None) == (C == 1024)
     # a second launch with nothing staged builds the same windows
@@ -380,6 +385,51 @@ def test_auction_windows_kernel_matches_plain(card, T, C, R, density, n_delta,
     with pytest.raises(ValueError, match="delta holds"):
         auction.auction_windows(*dev[:2], *dev[2:], S + 1, rounds, m, C,
                                 work=work)
+
+
+#: GFMC's shape: the benchmark cell's state, a small one, the small one
+#: with a D task (D live, its window short: every row scanned) and with no
+#: task at all (nothing scanned)
+GFMC_CASES = {"cell": GFMC_CELL, "small": GFMC_SMALL,
+              "small_d": GFMC_SMALL[:6] + ({**GFMC_SMALL[6], 5: 1},),
+              "none": GFMC_SMALL[:6] + ({},)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GFMC_CASES))
+def test_gfmc_windows_kernel_matches_plain(card, case):
+    """One launch on GFMC's shape, some slots staged, against
+    ``windows_torch`` + ``auction_torch`` on the same inputs: the whole
+    output (assigned, the windows' rows, rounds, ``scanned``, losses), the
+    live windows equal to ``_reqwin``, the others empty; at the cell's state
+    513 rows scanned, 136 commits in 6 rounds, 128 losses."""
+    S, nused, R, C, m, rounds, tasks = GFMC_CASES[case]
+    inst = gfmc_windows(np.random.default_rng(C + len(tasks)), S, nused, R,
+                        C, m, rounds, tasks, n_delta=5)
+    names = ("gp", "gg", "table", "order", "delta")
+    cpu = [torch.from_numpy(inst[k]) for k in names]
+    dev = [x.to(card) for x in cpu]
+    work = auction.Workspace(5, C, m, card)
+    got = auction.auction_windows(*dev[:2], *dev[2:], 5, rounds, m, C,
+                                  work=work).cpu()
+    want = auction.auction_windows(*cpu[:2], *cpu[2:], 5, rounds, m, C)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(dev[2].cpu().numpy(), inst["want_table"])
+    n = 5 * (C + 1)
+    rw, lens = dist._reqwin(inst["mask"], inst["valid"], 5, C, inst["perm"])
+    live = inst["gp"][:, 0] > _NEG
+    assert_windows(got[n:2 * n].view(5, C + 1).numpy(), rw, lens, live)
+    rounds_run, scanned, lost = got[2 * n:].tolist()
+    assert int(work.rounds_run) == rounds_run
+    if case == "cell":
+        assert (int((got[:n] >= 0).sum()), rounds_run, scanned, lost) == (
+            136, 6, C + 1, 128)
+    elif case == "small":
+        assert scanned == C + 1 and lost > 0
+    elif case == "small_d":
+        assert scanned == nused * R
+    else:
+        assert (rounds_run, scanned, lost) == (1, 0, 0)
 
 
 @pytest.mark.cuda

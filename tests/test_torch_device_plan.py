@@ -43,8 +43,9 @@ from adlb_tpu_torch.balancer import auction, candidates
 from adlb_tpu_torch.balancer import distributed as port
 from adlb_tpu_torch.balancer.distributed import DistributedAssignmentSolver
 from adlb_tpu_torch.runtime.trace import Tracer
-from window_churn import (CASES as CHURN_CASES, WindowChurn, check_windows,
-                          host_reach, random_windows, solver_kwargs)
+from window_churn import (CASES as CHURN_CASES, WindowChurn, assert_windows,
+                          check_windows, host_reach, live_types,
+                          random_windows, solver_kwargs)
 
 NEG = -(2**31) + 1
 CLIP = 10**9
@@ -255,8 +256,9 @@ def test_candidates_check_their_inputs():
 @pytest.mark.parametrize("nshards", [1, 2, 8])
 def test_device_windows_equal_reqwin_over_churn(nshards, case):
     """30 churn rounds: each device plan's windows, lengths and ``scanned``
-    equal the JAX package's ``_reqwin`` on the solver's host mirror, and its
-    pairs and ``last_assigned`` the host tier's. The rank order is re-sent
+    equal the JAX package's ``_reqwin`` on the solver's host mirror for the
+    types with a candidate (the others a prefix of it), and its pairs and
+    ``last_assigned`` the host tier's. The rank order is re-sent
     exactly in the rounds whose membership changed; each ingest ships the
     rows of the servers whose requesters changed, and nothing else."""
     kw = solver_kwargs(case, nshards)
@@ -288,16 +290,16 @@ def test_device_windows_equal_reqwin_over_churn(nshards, case):
         check_windows(dev)
         rw, lens = ref._reqwin(dev._req_mask, dev._req_valid, dev.T, dev.C,
                                dev._row_perm)
-        assert np.array_equal(dev._plan_rows[:, :dev.C], rw)
-        assert np.array_equal(dev._plan_rows[:, dev.C], lens)
+        live = live_types(dev)
+        assert_windows(dev._plan_rows, rw, lens, live)
         assert np.array_equal(dev.last_assigned, host.last_assigned), rnd
         in_use = len(dev._si) * dev.R
-        if (lens < dev.C).any():
+        if (lens[live] < dev.C).any():
             short += 1
             assert dev.last_scanned == in_use
         else:
             full += 1
-            assert dev.C <= dev.last_scanned <= in_use
+            assert dev.C * live.any() <= dev.last_scanned <= in_use
         snaps = gen.step(pairs)
     counts = dev.planner_counts()
     assert counts["device_windows"] == counts["device_plans"] == 30 - empty
@@ -411,17 +413,17 @@ def test_windows_plain_version_equals_reqwin_and_compaction(T, C, R, density,
     out = auction.auction_windows(gp, gg, table, order, delta, n_delta,
                                   rounds, m, C)
     n = T * (C + 1)
-    assert out.shape == (2 * n + 2,) and out.dtype == torch.int32
+    assert out.shape == (2 * n + 3,) and out.dtype == torch.int32
     assert np.array_equal(table.numpy(), inst["want_table"])
     rows = out[n:2 * n].view(T, C + 1).numpy()
-    assert np.array_equal(rows[:, :C], rw)
-    assert np.array_equal(rows[:, C], lens)
-    assert int(out[-1]) == inst["reach"]
+    assert_windows(rows, rw, lens, inst["gp"][:, 0] > NEG)
+    assert int(out[2 * n + 1]) == inst["reach"]
     rwc, open0 = port._compact_reqwin(rw)
-    want = auction.auction_torch(gp, gg, torch.from_numpy(rwc),
-                                 torch.from_numpy(lens),
-                                 torch.from_numpy(open0), rounds, m)
+    want, rounds_run, lost = auction._rounds_torch(
+        gp, gg, torch.from_numpy(rwc), torch.from_numpy(lens),
+        torch.from_numpy(open0), rounds, m)
     assert torch.equal(out[:n].view(T, C + 1), want)
+    assert (int(out[2 * n]), int(out[2 * n + 2])) == (rounds_run, lost)
     if density:
         assert (want >= 0).sum() > 0
 

@@ -44,6 +44,7 @@ from adlb_tpu_torch import graft_entry
 from adlb_tpu_torch.balancer import candidates, plan_bench
 from adlb_tpu_torch.balancer.distributed import DistributedAssignmentSolver
 from adlb_tpu_torch.balancer.engine import PlanEngine, shard_placement
+from window_churn import assert_windows, live_types
 from tests.test_torch_distributed import (
     _check_parity, _mk_engine, _mutate, _rand_job, _rand_snaps,
     _random_snapshots)
@@ -183,8 +184,7 @@ def test_rounds_equal_the_jax_pipeline_and_logical_shards(n, auction, J):
         assert np.array_equal(multi.last_assigned, want_assigned), rnd
         assert pairs == want_pairs, rnd
         if auction == "device" and multi._req_valid.any():
-            assert np.array_equal(multi._plan_rows[:, :multi.C], rw), rnd
-            assert np.array_equal(multi._plan_rows[:, multi.C], lens), rnd
+            assert_windows(multi._plan_rows, rw, lens, live_types(multi))
             assert np.array_equal(multi._plan_rows, logical._plan_rows)
             assert multi.last_scanned == logical.last_scanned
         _pieces_hold_the_mirror(multi)

@@ -121,7 +121,12 @@ def test_tuple_path_round_emits_the_table():
     assert spans["planner:plan.enqueue"]["args"]["launches"] == 0
     T, C = sol.T, sol.C
     rb = spans["planner:plan.readback"]["args"]
-    assert rb["bytes"] == 4 * (2 * T * (C + 1) + 2)
+    assert rb["bytes"] == 4 * (2 * T * (C + 1) + 3)
+    # the auction rounds and the entries lost to another type, as the
+    # solver read them back (server 11's any-type requester is claimed by
+    # several types)
+    assert (rb["rounds"], rb["lost"]) == (sol.last_rounds, sol.last_lost)
+    assert rb["rounds"] >= 2
     # C = 32 slots a type over 28 rows in use: no window fills, and the
     # scan reads every row of the seven servers
     assert C == 32 and rb["scanned"] == len(sol._si) * R == 28

@@ -19,14 +19,17 @@ re-sends it). Its cases:
   (an empty requester table), then the world parks again.
 
 :func:`check_windows` holds a device-tier solver's last windows to the
-host's ``_reqwin`` over its own mirror; :func:`random_windows` makes the
-inputs of ``auction.auction_windows`` alone.
+host's ``_reqwin`` over its own mirror (:func:`assert_windows`: the windows
+of the live types, those with a candidate, equal, the others a prefix, as
+the device tier builds the live windows alone); :func:`random_windows`
+makes the inputs of ``auction.auction_windows`` alone.
 """
 
 import numpy as np
 
 TYPES = (1, 2, 3, 4)
 CASES = ("mixed", "rare", "multi_job", "drain")
+NEG = -(2**31) + 1  # the padding priority
 
 
 class WindowChurn:
@@ -129,28 +132,66 @@ def solver_kwargs(case: str, nshards: int) -> dict:
     return kw
 
 
+def reach(vm, C: int, live) -> int:
+    """The rows a scan in order over ``vm`` [n, T] (each row's accepting
+    types) takes in for the ``live`` types' windows of C: up to the row
+    that fills the last live window, 0 when no type is live, or every row
+    when a live window stays short."""
+    n = vm.shape[0]
+    live = np.flatnonzero(live)
+    if not live.size:
+        return 0
+    cs = np.cumsum(vm, axis=0)
+    if not n or (cs[-1, live] < C).any():
+        return n
+    return max(int(np.argmax(cs[:, t] >= C)) + 1 for t in live)
+
+
+def live_types(sol) -> np.ndarray:
+    """[T] bool from a solver's host mirror: the types with a candidate in
+    its resident task table (a slot with a priority and a type), those
+    whose windows the device plan builds."""
+    live = np.zeros((sol.T,), dtype=bool)
+    live[sol._tt[(sol._tp > NEG) & (sol._tt >= 0)]] = True
+    return live
+
+
 def host_reach(sol) -> int:
-    """The rows the windows take in, from the host mirror: up to the row
-    that fills the last window, or every row of the servers in use."""
-    rw, _ = sol.host_windows()
+    """The rows the device plan's windows take in, from the host mirror:
+    :func:`reach` over the rows of the servers in use, in rank order, for
+    the types with a candidate."""
+    sol.host_windows()
     n = len(sol._si) * sol.R
     order = sol._row_perm[:n]
     vm = sol._req_mask[order] & sol._req_valid[order, None]
-    cs = np.cumsum(vm, axis=0)
-    if not n or (cs[-1] < sol.C).any():
-        return n
-    return int(max(np.argmax(cs[:, t] >= sol.C) for t in range(sol.T))) + 1
+    return reach(vm, sol.C, live_types(sol))
+
+
+def assert_windows(rows, rw, lens, live) -> None:
+    """Windows as the device tier gives them (``rows`` [T, C + 1]: each
+    slot's physical row, -1 past the window, its length in column C)
+    against the host's ``_reqwin`` (``rw`` [T, C], ``lens``): each live
+    type's window equal, each other type's a prefix of the host's."""
+    rows = np.asarray(rows)
+    T, C = rw.shape
+    assert rows.shape == (T, C + 1)
+    for t in range(T):
+        n = int(rows[t, C])
+        if live[t]:
+            assert n == lens[t], t
+            np.testing.assert_array_equal(rows[t, :C], rw[t])
+        else:
+            assert 0 <= n <= lens[t], t
+            np.testing.assert_array_equal(rows[t, :n], rw[t, :n])
+            assert (rows[t, n:C] == -1).all(), t
 
 
 def check_windows(sol) -> None:
     """The device tier's last windows (physical rows, lengths, ``scanned``)
-    equal the host's ``_reqwin`` over the solver's own mirror."""
+    against the host's ``_reqwin`` over the solver's own mirror
+    (:func:`assert_windows`)."""
     rw, lens = sol.host_windows()
-    C = sol.C
-    rows = sol._plan_rows
-    assert rows.shape == (sol.T, C + 1)
-    np.testing.assert_array_equal(rows[:, :C], rw)
-    np.testing.assert_array_equal(rows[:, C], lens)
+    assert_windows(sol._plan_rows, rw, lens, live_types(sol))
     assert sol.last_scanned == host_reach(sol)
 
 
@@ -200,9 +241,6 @@ def random_windows(rng, T: int, C: int, R: int, density: float,
     delta = staged_rows(dslots, mask[drows], valid[drows])
     perm = (seq[:, None] * R + np.arange(R)).reshape(-1)
     vm = (mask & valid[:, None])[perm[:nused * R]]
-    cs = np.cumsum(vm, axis=0)
-    reach = (nused * R if not vm.size or (cs[-1] < C).any() else
-             max(int(np.argmax(cs[:, t] >= C)) for t in range(T)) + 1)
     L = C + m + 1
     gp = np.ascontiguousarray(np.sort(rng.integers(-9, 9, (T, L)),
                                       axis=1)[:, ::-1]).astype(np.int32)
@@ -210,5 +248,6 @@ def random_windows(rng, T: int, C: int, R: int, density: float,
     return dict(gp=gp, gg=gg, table=table,
                 order=np.concatenate([[nused], seq]).astype(np.int32),
                 delta=delta, mask=mask, valid=valid, perm=perm, nused=nused,
-                want_table=want, reach=reach, m=m, rounds=rounds)
+                want_table=want, reach=reach(vm, C, np.ones(T, bool)), m=m,
+                rounds=rounds)
 
